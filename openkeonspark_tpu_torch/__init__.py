@@ -1,0 +1,17 @@
+"""openkeonspark_tpu_torch — the PyTorch / CUDA port of openkeonspark_tpu.
+
+The JAX package ``openkeonspark_tpu`` is the reference; this package mirrors
+its module names (``models/``, ``eval/``, ``ops/``, ``ckpt/``, ``cli/``) and
+keeps its parameter layout at every public function: a dict
+``{table_name: [rows + pad, dim]}`` with one zero pad row. The numpy-only
+parts of the reference (``data``, ``config.Config``, ``cli.args``) are
+reused by import, never copied. The package imports ``torch`` and never
+``jax``.
+
+Ported so far: the TransE evaluation ("serving") path — link prediction,
+triple classification and the top-k ``predict_*`` queries — driven by
+``python -m openkeonspark_tpu_torch.cli.evaluate``, with the rank count
+as a hand-written CUDA kernel (``ops/csrc/rank_count.cu``).
+"""
+
+__version__ = "0.1.0"

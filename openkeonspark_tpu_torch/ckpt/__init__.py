@@ -1,0 +1,3 @@
+from openkeonspark_tpu_torch.ckpt.checkpoint import (  # noqa: F401
+    export_parameters, import_parameters, load_params, params_from_numpy,
+    read_parameters, save_params)

@@ -1,0 +1,209 @@
+"""Link-prediction evaluation: raw + filtered MR / MRR / Hits@1/3/10,
+head / tail / averaged.
+
+Counterpart of ``openkeonspark_tpu/eval/link_prediction.py`` (``:50-110``,
+``:491-644``) for TransE. The rank of the gold entity is
+``1 + #{candidates scoring strictly better}``: a chunk of test triples is
+counted against the whole entity table in one fused pass
+(``ops/rank.py::count_better_transe``, a CUDA kernel on the card). The
+filtered rank subtracts the known-true candidates (all splits) that score
+better: their ids are gathered on the device from the group index into a
+``[C, K]`` window padded with ``n_ent`` and scored through the same
+arithmetic as the count, so the subtraction is tie-exact."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from openkeonspark_tpu.config import Config
+from openkeonspark_tpu.data.dataset import Dataset, H, R, T
+from openkeonspark_tpu.data.index import KGIndex
+from openkeonspark_tpu_torch.ops import rank as rank_ops
+from openkeonspark_tpu_torch.runtime import check_supported, eval_chunk_size
+
+
+@dataclass
+class DirectionMetrics:
+    mr: float
+    mrr: float
+    hits1: float
+    hits3: float
+    hits10: float
+
+    @staticmethod
+    def from_ranks(ranks: np.ndarray) -> "DirectionMetrics":
+        r = ranks.astype(np.float64) + 1.0  # ranks stored 0-based (count of better)
+        return DirectionMetrics(
+            mr=float(r.mean()),
+            mrr=float((1.0 / r).mean()),
+            hits1=float((r <= 1).mean()),
+            hits3=float((r <= 3).mean()),
+            hits10=float((r <= 10).mean()),
+        )
+
+
+@dataclass
+class LinkPredictionResult:
+    """All 2 (raw/filter) × 2 (head/tail) metric sets + averages, plus the
+    per-triple ranks (raw_head/raw_tail/filt_head/filt_tail)."""
+
+    raw_head: DirectionMetrics
+    raw_tail: DirectionMetrics
+    filt_head: DirectionMetrics
+    filt_tail: DirectionMetrics
+    ranks: Dict[str, np.ndarray]
+
+    @staticmethod
+    def _avg(a: DirectionMetrics, b: DirectionMetrics) -> DirectionMetrics:
+        return DirectionMetrics(*[(x + y) / 2 for x, y in
+                                  zip(a.__dict__.values(), b.__dict__.values())])
+
+    @property
+    def raw_avg(self) -> DirectionMetrics:
+        return self._avg(self.raw_head, self.raw_tail)
+
+    @property
+    def filt_avg(self) -> DirectionMetrics:
+        return self._avg(self.filt_head, self.filt_tail)
+
+    def format_table(self) -> str:
+        """The reference's ``test_link_prediction`` table, byte for byte."""
+        rows = [
+            ("metric", "MR", "MRR", "hit@1", "hit@3", "hit@10"),
+        ]
+        for label, m in [
+            ("l(raw)", self.raw_head), ("r(raw)", self.raw_tail),
+            ("averaged(raw)", self.raw_avg),
+            ("l(filter)", self.filt_head), ("r(filter)", self.filt_tail),
+            ("averaged(filter)", self.filt_avg),
+        ]:
+            rows.append((label, f"{m.mr:.2f}", f"{m.mrr:.4f}",
+                         f"{m.hits1:.4f}", f"{m.hits3:.4f}", f"{m.hits10:.4f}"))
+        widths = [max(len(r[i]) for r in rows) for i in range(6)]
+        return "\n".join("  ".join(c.ljust(w) for c, w in zip(r, widths))
+                         for r in rows)
+
+
+def guard_finite_params(params: Dict[str, torch.Tensor]) -> None:
+    """Refuse to rank with non-finite embeddings: NaN scores compare False
+    against everything, so a diverged model would report a perfect Hits@10.
+    One fused reduction and one host read for all tables; the offending
+    table is named only on the failure path."""
+    bad = torch.stack([(~torch.isfinite(t)).sum() for t in params.values()])
+    if int(bad.sum()):
+        for name, n in zip(params, bad.tolist()):
+            if n:
+                raise ValueError(
+                    f"param table {name!r} contains non-finite values — "
+                    "training diverged (lower alpha?); refusing to evaluate")
+
+
+def known_matrix(sorted_vals: torch.Tensor, off: torch.Tensor,
+                 cnt: torch.Tensor, k_max: int, pad: int) -> torch.Tensor:
+    """[C, k_max] known-true ids of each query, gathered on the device from
+    the flat group array (``off``/``cnt`` its windows), padded with
+    ``pad``: the semantics of the reference's ``_known_matrix``."""
+    C = off.shape[0]
+    if sorted_vals.numel() == 0:
+        return torch.full((C, k_max), pad, dtype=torch.int32,
+                          device=off.device)
+    lane = torch.arange(k_max, device=off.device)[None, :]
+    src = (off.long()[:, None] + lane).clamp_(max=sorted_vals.numel() - 1)
+    return torch.where(lane < cnt[:, None], sorted_vals[src], pad)
+
+
+def _rank_chunk(params, h, t, r, gold_ids, known, replace: str, n_ent: int,
+                p: int, plain: bool):
+    """Raw and filtered counts of strictly better candidates for one
+    query chunk; ``gold_ids`` [C] and ``known`` [C, K] int32."""
+    if plain:
+        count, scores = (rank_ops.count_better_transe_ref,
+                         rank_ops.transe_candidate_scores_ref)
+    else:
+        count, scores = (rank_ops.count_better_transe,
+                         rank_ops.transe_candidate_scores)
+    E = params["ent_embeddings"]
+    q, sign = rank_ops.transe_queries(params, h.long(), t.long(), r.long(),
+                                      replace)
+    gold_s = scores(q, E, gold_ids, sign, p)
+    raw = count(q, E, gold_s, gold_ids, sign, p, n_ent)
+    ks = scores(q, E, known.clamp(max=E.shape[0] - 1), sign, p)
+    kvalid = (known < n_ent) & (known != gold_ids[:, None])
+    known_better = ((ks < gold_s[:, None]) & kvalid).sum(1, dtype=torch.int32)
+    return raw, raw - known_better
+
+
+@torch.no_grad()
+def link_prediction(params: Dict[str, torch.Tensor], cfg: Config,
+                    ds: Dataset, index: KGIndex,
+                    triples: Optional[np.ndarray] = None, log=None,
+                    plain: bool = False) -> LinkPredictionResult:
+    """Evaluate link prediction over ``triples`` (default: the test split)
+    on the device the tables lie on. ``index`` must be built with
+    ``for_eval=True`` (all-splits group lists). ``plain=True`` counts
+    through the plain PyTorch versions instead of the kernels: the
+    reference the kernel path is held to on the card."""
+    check_supported(cfg)
+    if triples is None:
+        triples = ds.test
+    if triples is None or len(triples) == 0:
+        raise ValueError("no test triples")
+    if index.hr_all is None or index.tr_all is None:
+        raise ValueError("link_prediction needs an eval index "
+                         "(build_kg_index(for_eval=True))")
+    guard_finite_params(params)
+
+    dev = params["ent_embeddings"].device
+    chunk = eval_chunk_size(cfg)
+    h_all, t_all, r_all = triples[:, H], triples[:, T], triples[:, R]
+    n = len(triples)
+    # host side: only the (off, cnt) window lookups; the known-id windows
+    # are gathered on the device
+    offt, cntt = index.hr_all.lookup(h_all, r_all)
+    offh, cnth = index.tr_all.lookup(t_all, r_all)
+    k_max = int(max(cntt.max(), cnth.max(), 1))
+    k_max = -(-k_max // 64) * 64
+    vals_t = torch.from_numpy(index.hr_all.sorted_vals.astype(np.int32)).to(dev)
+    vals_h = torch.from_numpy(index.tr_all.sorted_vals.astype(np.int32)).to(dev)
+
+    ranks = {k: np.empty(n, np.int64) for k in
+             ("raw_head", "raw_tail", "filt_head", "filt_tail")}
+    # groups bound the known-window elements held at once for huge splits;
+    # results come back to the host once per group
+    group_q = max(chunk, cfg.eval_group_elems // k_max // chunk * chunk)
+    for s in range(0, n, group_q):
+        e = min(s + group_q, n)
+        dv = lambda a: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a[s:e], dtype=np.int32)).to(dev)
+        h, t, r = dv(h_all), dv(t_all), dv(r_all)
+        ot, ct, oh, ch = dv(offt), dv(cntt), dv(offh), dv(cnth)
+        out = {k: [] for k in ranks}
+        for c in range(0, e - s, chunk):
+            sl = slice(c, c + chunk)
+            kt = known_matrix(vals_t, ot[sl], ct[sl], k_max, ds.n_ent)
+            kh = known_matrix(vals_h, oh[sl], ch[sl], k_max, ds.n_ent)
+            raw_t, filt_t = _rank_chunk(params, h[sl], t[sl], r[sl], t[sl],
+                                        kt, "tail", ds.n_ent, cfg.p_norm,
+                                        plain)
+            raw_h, filt_h = _rank_chunk(params, h[sl], t[sl], r[sl], h[sl],
+                                        kh, "head", ds.n_ent, cfg.p_norm,
+                                        plain)
+            for k, v in (("raw_tail", raw_t), ("filt_tail", filt_t),
+                         ("raw_head", raw_h), ("filt_head", filt_h)):
+                out[k].append(v)
+        for k in ranks:
+            ranks[k][s:e] = torch.cat(out[k]).cpu().numpy()
+        if log is not None:
+            log(f"link-pred {e}/{n}")
+
+    return LinkPredictionResult(
+        raw_head=DirectionMetrics.from_ranks(ranks["raw_head"]),
+        raw_tail=DirectionMetrics.from_ranks(ranks["raw_tail"]),
+        filt_head=DirectionMetrics.from_ranks(ranks["filt_head"]),
+        filt_tail=DirectionMetrics.from_ranks(ranks["filt_tail"]),
+        ranks=ranks,
+    )

@@ -1,0 +1,5 @@
+from openkeonspark_tpu_torch.models.base import (KGEModel,  # noqa: F401
+                                                 TableSpec, get_model,
+                                                 init_tables, padded_rows,
+                                                 strip_padding)
+from openkeonspark_tpu_torch.models.transe import TransE  # noqa: F401

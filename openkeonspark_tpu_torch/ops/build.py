@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into one shared
+library with a plain C interface, ``build/kernels/<hash>/libokst_kernels.so``
+under the checkout, keyed by a hash of the sources and flags, at first use.
+A build takes seconds because no source includes PyTorch's headers. The
+library is loaded once per process; every pointer and the stream are passed
+as ``ctypes.c_void_p``, so no pointer is cut to 32 bits."""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libokst_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each launcher: every one returns its cudaError_t as int
+SIGNATURES = {
+    # q, table, gold, gold_ids, counts, C, D, n_ent, sign, p, stream
+    "okst_count_better_transe": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, table, ids, out, C, K, D, rows, sign, p, stream
+    "okst_transe_score_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_info: dict = {}   # path, seconds (0.0 when cached) and nvcc's log
+
+
+def _sources():
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME); the "
+                       "CUDA kernels are built with nvcc at first use")
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists;
+    returns its path. Raises with nvcc's output if the build fails."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        build_info.update(path=str(lib), seconds=0.0, log="(cached)")
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in srcs if s.suffix == ".cu"]
+    # build to a private name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+    os.replace(tmp, lib)
+    build_info.update(path=str(lib), seconds=seconds,
+                      log=proc.stderr + proc.stdout)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a launcher returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")

@@ -1,0 +1,56 @@
+"""Device and evaluation-size resolution for the port.
+
+The device is resolved once, at the entry point, and passed down
+explicitly. Nothing falls back to the CPU silently: asking for ``cuda``
+on a machine without a usable card raises."""
+
+from __future__ import annotations
+
+import torch
+
+from openkeonspark_tpu.config import Config
+
+# test triples ranked per query chunk. The reference's Config.eval_chunk_size
+# is not called: it imports jax and caps chunks for the TPU's VMEM.
+DEFAULT_EVAL_CHUNK = 256
+
+
+class NotPortedError(NotImplementedError):
+    """An option the port does not cover yet (see ROADMAP.md queue A)."""
+
+
+def resolve_device(name: str = "cuda") -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} was asked for but torch.cuda.is_available() "
+            "is False; pass --device cpu to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
+    return dev
+
+
+def eval_chunk_size(cfg: Config) -> int:
+    return cfg.eval_chunk if cfg.eval_chunk is not None else DEFAULT_EVAL_CHUNK
+
+
+def check_supported(cfg: Config) -> None:
+    """Refuse the options the evaluation slice does not cover, instead of
+    ignoring them."""
+    if cfg.model != "transe":
+        raise NotPortedError(
+            f"model {cfg.model!r} is not yet ported to "
+            "openkeonspark_tpu_torch (only transe); see ROADMAP.md queue A")
+    if cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1 or cfg.num_processes > 1:
+        raise NotPortedError(
+            f"multi-device evaluation (mesh {cfg.mesh_shape}, "
+            f"{cfg.num_processes} processes) is not yet ported; "
+            "see ROADMAP.md queue A")
+    if cfg.type_constrain:
+        raise NotPortedError(
+            "type-constrained link prediction is not yet ported; "
+            "see ROADMAP.md queue A")
+    if cfg.eval_dtype != "float32":
+        raise NotPortedError(
+            f"eval_dtype {cfg.eval_dtype!r} is not yet ported (the port "
+            "scores in float32); see ROADMAP.md queue A")
