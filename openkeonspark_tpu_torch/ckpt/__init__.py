@@ -1,3 +1,4 @@
 from openkeonspark_tpu_torch.ckpt.checkpoint import (  # noqa: F401
-    export_parameters, import_parameters, load_params, params_from_numpy,
-    read_parameters, save_params)
+    CheckpointManager, export_parameters, import_parameters,
+    latest_step, load_params, params_from_numpy, read_parameters,
+    save_params)

@@ -1,17 +1,22 @@
 """Parameter export / import and the port's own checkpoints.
 
-Counterpart of the export half of ``openkeonspark_tpu/ckpt/checkpoint.py``:
+Counterpart of ``openkeonspark_tpu/ckpt/checkpoint.py``:
 ``embedding.vec.json`` and ``embedding.npz`` are written and read exactly
 as the reference writes them, so exports pass between the two packages.
-The reference's orbax ``step_N`` checkpoints need jax to read; the port
-evaluates from an export instead (``cli.train`` writes one every run) or
-from its own ``torch.save`` file (:func:`save_params`)."""
+Training checkpoints (:class:`CheckpointManager`) are numbered ``step_N/``
+directories, as in the reference, each holding a torch state dict of the
+tables, the optimizer state and the global step (``state.pt``) and a JSON
+manifest. The reference's orbax ``step_N`` checkpoints need jax to read
+and are refused; the port evaluates from an export (``cli.train`` writes
+one every run) or from its own ``torch.save`` file (:func:`save_params`)."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Tuple
+import re
+import shutil
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +27,9 @@ from openkeonspark_tpu_torch.models.base import (Params, padded_rows,
 
 # checkpoint-directory files the evaluator looks for, in order
 EXPORT_NAMES = ("embedding.npz", "embedding.vec.json", "params.pt")
+_STEP_DIR = re.compile(r"^step_(\d+)$")
+STATE_NAME = "state.pt"
+MANIFEST_NAME = "manifest.json"
 
 
 def export_parameters(params: Params, model, cfg: Config, n_ent: int,
@@ -112,3 +120,110 @@ def params_from_numpy(np_params: Dict[str, np.ndarray], model, cfg: Config,
         pad = torch.zeros(padded_rows(spec.rows) - spec.rows, spec.dim)
         out[name] = torch.cat([body, pad]).to(device)
     return out
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _fit_rows(name: str, stored: torch.Tensor, like: torch.Tensor,
+              logical_rows: Optional[Dict[str, int]]) -> torch.Tensor:
+    """``stored`` in the template's row layout: tables written with
+    another pad layout share their logical rows as a prefix, so they are
+    prefix-copied (extra pad rows zero). Fewer stored rows than the
+    template's logical rows is a vocabulary mismatch and raises."""
+    if tuple(stored.shape) == tuple(like.shape):
+        return stored.to(like.device, like.dtype)
+    if stored.dim() != like.dim() or stored.shape[1:] != like.shape[1:]:
+        raise ValueError(f"checkpoint table {name!r} has shape "
+                         f"{tuple(stored.shape)}, the template "
+                         f"{tuple(like.shape)}")
+    need = (logical_rows or {}).get(name)
+    if need is not None and stored.shape[0] < need:
+        raise ValueError(
+            f"checkpoint table {name!r} holds {stored.shape[0]} rows but "
+            f"the template needs {need} logical rows — a vocabulary "
+            "mismatch, not padding")
+    n = min(stored.shape[0], like.shape[0])
+    out = torch.zeros_like(like)
+    out[:n] = stored[:n].to(like.device, like.dtype)
+    return out
+
+
+class CheckpointManager:
+    """Numbered ``step_N/`` checkpoints under a directory, keeping the last
+    ``keep`` (the reference's Saver kept 5)."""
+
+    def __init__(self, directory: str, keep: int = 5):
+        self.directory = os.path.abspath(directory)
+        self.keep = keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step}")
+
+    def save(self, step: int, state, extra: Optional[dict] = None) -> None:
+        """Save the train state (tables, optimizer state, step) and a JSON
+        manifest holding ``extra``."""
+        path = self._path(int(step))
+        os.makedirs(path, exist_ok=True)
+        tree = {"params": _to_cpu(state.params),
+                "opt_state": _to_cpu(state.opt_state),
+                "step": int(state.step)}
+        tmp = os.path.join(path, STATE_NAME + ".tmp")
+        torch.save(tree, tmp)
+        os.replace(tmp, os.path.join(path, STATE_NAME))
+        with open(os.path.join(path, MANIFEST_NAME), "w") as f:
+            json.dump({"step": int(step), **(extra or {})}, f)
+        self._gc()
+
+    def restore(self, state, step: Optional[int] = None,
+                logical_rows: Optional[Dict[str, int]] = None):
+        """Restore into the template ``state`` (its tables give the device
+        and row layout); returns (state, manifest). ``logical_rows``
+        (table → logical row count) guards the pad-layout prefix copy
+        against a vocabulary mismatch."""
+        if step is None:
+            step = latest_step(self.directory)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        path = self._path(step)
+        state_file = os.path.join(path, STATE_NAME)
+        if not os.path.exists(state_file):
+            raise ValueError(
+                f"{path} holds no {STATE_NAME}: not a checkpoint of the port "
+                "(the JAX package's orbax step_N checkpoints need jax; "
+                "evaluate from its embedding export instead)")
+        raw = torch.load(state_file, map_location="cpu", weights_only=True)
+        params = {k: _fit_rows(k, raw["params"][k], v, logical_rows)
+                  for k, v in state.params.items()}
+        opt_state = {s: {k: _fit_rows(k, raw["opt_state"][s][k], v,
+                                      logical_rows)
+                         for k, v in slots.items()}
+                     for s, slots in state.opt_state.items()}
+        manifest = {}
+        mpath = os.path.join(path, MANIFEST_NAME)
+        if os.path.exists(mpath):
+            with open(mpath) as f:
+                manifest = json.load(f)
+        return (type(state)(params=params, opt_state=opt_state,
+                            step=int(raw["step"])), manifest)
+
+    def _gc(self) -> None:
+        steps = sorted(all_steps(self.directory))
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(self._path(s), ignore_errors=True)
+
+
+def all_steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    return [int(m.group(1)) for m in map(_STEP_DIR.match,
+                                          os.listdir(directory)) if m]
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = all_steps(directory)
+    return max(steps) if steps else None

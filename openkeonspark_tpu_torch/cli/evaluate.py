@@ -12,6 +12,9 @@ Usage:
         --checkpoint out/ --model transe --hidden_size 200 \
         --link_prediction --triple_classification
     python -m openkeonspark_tpu_torch.cli.evaluate ... --predict_tail 123,7
+
+Models: transe and transr (``--ent_size`` / ``--rel_size``); the
+``--predict_*`` queries cover transe only.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from openkeonspark_tpu.data.dataset import load_dataset
 from openkeonspark_tpu.data.index import build_kg_index
 from openkeonspark_tpu_torch.ckpt import params_from_numpy, read_parameters
 from openkeonspark_tpu_torch.models.base import get_model
-from openkeonspark_tpu_torch.runtime import check_supported, resolve_device
+from openkeonspark_tpu_torch.runtime import (check_predict_supported,
+                                             check_supported, resolve_device)
 
 
 def main(argv=None):
@@ -45,6 +49,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = config_from_args(args)
     check_supported(cfg)
+    if args.predict_tail or args.predict_head or args.predict_rel:
+        check_predict_supported(cfg)
     device = resolve_device(args.device)
 
     ds = load_dataset(cfg.in_path)

@@ -2,14 +2,20 @@
 head / tail / averaged.
 
 Counterpart of ``openkeonspark_tpu/eval/link_prediction.py`` (``:50-110``,
-``:491-644``) for TransE. The rank of the gold entity is
-``1 + #{candidates scoring strictly better}``: a chunk of test triples is
-counted against the whole entity table in one fused pass
+``:295-431``, ``:491-644``) for TransE and TransR. The rank of the gold
+entity is ``1 + #{candidates scoring strictly better}``: a chunk of test
+triples is counted against the whole entity table in one fused pass
 (``ops/rank.py::count_better_transe``, a CUDA kernel on the card). The
 filtered rank subtracts the known-true candidates (all splits) that score
 better: their ids are gathered on the device from the group index into a
 ``[C, K]`` window padded with ``n_ent`` and scored through the same
-arithmetic as the count, so the subtraction is tie-exact."""
+arithmetic as the count, so the subtraction is tie-exact.
+
+TransR goes relation by relation (:func:`_grouped_link_prediction`): test
+triples are sorted by relation into single-relation chunks, the entity
+table is projected once per chunk (``E @ M_ρ``, a plain fp32 matmul) and
+the count sweeps the projected table TransE-style, gold and known-true
+scores coming from the same projected table."""
 
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from openkeonspark_tpu.config import Config
 from openkeonspark_tpu.data.dataset import Dataset, H, R, T
 from openkeonspark_tpu.data.index import KGIndex
 from openkeonspark_tpu_torch.ops import rank as rank_ops
-from openkeonspark_tpu_torch.runtime import check_supported, eval_chunk_size
+from openkeonspark_tpu_torch.runtime import (check_supported, eval_chunk_size,
+                                             full_fp32_matmul)
 
 
 @dataclass
@@ -116,60 +123,103 @@ def known_matrix(sorted_vals: torch.Tensor, off: torch.Tensor,
     return torch.where(lane < cnt[:, None], sorted_vals[src], pad)
 
 
-def _rank_chunk(params, h, t, r, gold_ids, known, replace: str, n_ent: int,
-                p: int, plain: bool):
-    """Raw and filtered counts of strictly better candidates for one
-    query chunk; ``gold_ids`` [C] and ``known`` [C, K] int32."""
+def _count_chunk(q: torch.Tensor, sign: float, table: torch.Tensor,
+                 gold_ids: torch.Tensor, known: torch.Tensor, n_ent: int,
+                 p: int, plain: bool):
+    """Raw and filtered counts of strictly better candidates for one query
+    chunk scored as ``‖q + sign·table[e]‖_p``; ``gold_ids`` [C] and
+    ``known`` [C, K] int32."""
     if plain:
         count, scores = (rank_ops.count_better_transe_ref,
                          rank_ops.transe_candidate_scores_ref)
     else:
         count, scores = (rank_ops.count_better_transe,
                          rank_ops.transe_candidate_scores)
-    E = params["ent_embeddings"]
-    q, sign = rank_ops.transe_queries(params, h.long(), t.long(), r.long(),
-                                      replace)
-    gold_s = scores(q, E, gold_ids, sign, p)
-    raw = count(q, E, gold_s, gold_ids, sign, p, n_ent)
-    ks = scores(q, E, known.clamp(max=E.shape[0] - 1), sign, p)
+    gold_s = scores(q, table, gold_ids, sign, p)
+    raw = count(q, table, gold_s, gold_ids, sign, p, n_ent)
+    ks = scores(q, table, known.clamp(max=table.shape[0] - 1), sign, p)
     kvalid = (known < n_ent) & (known != gold_ids[:, None])
     known_better = ((ks < gold_s[:, None]) & kvalid).sum(1, dtype=torch.int32)
     return raw, raw - known_better
 
 
-@torch.no_grad()
-def link_prediction(params: Dict[str, torch.Tensor], cfg: Config,
-                    ds: Dataset, index: KGIndex,
-                    triples: Optional[np.ndarray] = None, log=None,
-                    plain: bool = False) -> LinkPredictionResult:
-    """Evaluate link prediction over ``triples`` (default: the test split)
-    on the device the tables lie on. ``index`` must be built with
-    ``for_eval=True`` (all-splits group lists). ``plain=True`` counts
-    through the plain PyTorch versions instead of the kernels: the
-    reference the kernel path is held to on the card."""
-    check_supported(cfg)
-    if triples is None:
-        triples = ds.test
-    if triples is None or len(triples) == 0:
-        raise ValueError("no test triples")
-    if index.hr_all is None or index.tr_all is None:
-        raise ValueError("link_prediction needs an eval index "
-                         "(build_kg_index(for_eval=True))")
-    guard_finite_params(params)
+def _rank_chunk(params, h, t, r, gold_ids, known, replace: str, n_ent: int,
+                p: int, plain: bool):
+    """TransE chunk: queries ``E[h] + R[r]`` (tail) or ``R[r] − E[t]``
+    (head) against the entity table."""
+    q, sign = rank_ops.transe_queries(params, h.long(), t.long(), r.long(),
+                                      replace)
+    return _count_chunk(q, sign, params["ent_embeddings"], gold_ids, known,
+                        n_ent, p, plain)
 
+
+def _single_relation_chunks(r_all: np.ndarray, chunk: int):
+    """Positions of the triples sorted (stably) by relation, cut into
+    single-relation chunks of ``chunk``, each relation's last chunk padded
+    with its own first triple: (relation [NC], positions [NC, chunk])."""
+    order = np.argsort(r_all, kind="stable")
+    rs = r_all[order]
+    cuts = np.flatnonzero(np.diff(rs)) + 1
+    rels, pos = [], []
+    for s, e in zip(np.r_[0, cuts], np.r_[cuts, len(rs)]):
+        for c in range(s, e, chunk):
+            part = order[c:min(c + chunk, e)]
+            rels.append(rs[s])
+            pos.append(np.r_[part, np.repeat(part[:1], chunk - len(part))])
+    return np.asarray(rels, np.int64), np.stack(pos)
+
+
+def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
+                             triples: np.ndarray, offs, k_max: int,
+                             vals_t, vals_h, plain: bool, log=None):
+    """TransR ranks, one relation-sharing chunk at a time (the JAX
+    package's ``_grouped_link_prediction`` / ``_rank_scan_grouped``): the
+    entity table is projected once per chunk and both directions sweep the
+    projected ``[rows, d_r]`` table with the count kernel."""
+    dev = params["ent_embeddings"].device
+    E, Rt = params["ent_embeddings"], params["rel_embeddings"]
+    TM = params["transfer_matrix"]
+    de, dr = cfg.d_ent, cfg.d_rel
+    chunk = min(eval_chunk_size(cfg), 64)   # small chunks bound the padding
+    rel, posm = _single_relation_chunks(triples[:, R], chunk)
+    on = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a[posm], dtype=np.int32)).to(dev)
+    h, t = on(triples[:, H]), on(triples[:, T])
+    ot, ct, oh, ch = (on(a) for a in offs)
+    out = {k: [] for k in ("raw_tail", "filt_tail", "raw_head", "filt_head")}
+    with full_fp32_matmul():
+        for ci, rho in enumerate(rel.tolist()):
+            proj = E @ TM[rho].view(de, dr)                 # [rows, dr]
+            rvec = Rt[rho]
+            hq, tq = h[ci], t[ci]
+            q_t = (proj[hq.long()] + rvec).contiguous()
+            q_h = (rvec - proj[tq.long()]).contiguous()
+            kt = known_matrix(vals_t, ot[ci], ct[ci], k_max, ds.n_ent)
+            kh = known_matrix(vals_h, oh[ci], ch[ci], k_max, ds.n_ent)
+            for k, v in zip(("raw_tail", "filt_tail"), _count_chunk(
+                    q_t, -1.0, proj, tq, kt, ds.n_ent, cfg.p_norm, plain)):
+                out[k].append(v)
+            for k, v in zip(("raw_head", "filt_head"), _count_chunk(
+                    q_h, 1.0, proj, hq, kh, ds.n_ent, cfg.p_norm, plain)):
+                out[k].append(v)
+    ranks = {k: np.empty(len(triples), np.int64) for k in out}
+    for k, v in out.items():
+        # pad slots repeat their chunk's first triple: equal values
+        ranks[k][posm.reshape(-1)] = torch.cat(v).cpu().numpy()
+    if log is not None:
+        log(f"link-pred ({cfg.model} grouped) {len(triples)}/{len(triples)}")
+    return ranks
+
+
+def _transe_link_prediction(params, cfg: Config, ds: Dataset,
+                            triples: np.ndarray, offs, k_max: int, vals_t,
+                            vals_h, plain: bool, log=None):
+    """TransE ranks, chunk by chunk in the order of ``triples``."""
     dev = params["ent_embeddings"].device
     chunk = eval_chunk_size(cfg)
     h_all, t_all, r_all = triples[:, H], triples[:, T], triples[:, R]
+    offt, cntt, offh, cnth = offs
     n = len(triples)
-    # host side: only the (off, cnt) window lookups; the known-id windows
-    # are gathered on the device
-    offt, cntt = index.hr_all.lookup(h_all, r_all)
-    offh, cnth = index.tr_all.lookup(t_all, r_all)
-    k_max = int(max(cntt.max(), cnth.max(), 1))
-    k_max = -(-k_max // 64) * 64
-    vals_t = torch.from_numpy(index.hr_all.sorted_vals.astype(np.int32)).to(dev)
-    vals_h = torch.from_numpy(index.tr_all.sorted_vals.astype(np.int32)).to(dev)
-
     ranks = {k: np.empty(n, np.int64) for k in
              ("raw_head", "raw_tail", "filt_head", "filt_tail")}
     # groups bound the known-window elements held at once for huge splits;
@@ -200,6 +250,44 @@ def link_prediction(params: Dict[str, torch.Tensor], cfg: Config,
         if log is not None:
             log(f"link-pred {e}/{n}")
 
+    return ranks
+
+
+@torch.no_grad()
+def link_prediction(params: Dict[str, torch.Tensor], cfg: Config,
+                    ds: Dataset, index: KGIndex,
+                    triples: Optional[np.ndarray] = None, log=None,
+                    plain: bool = False) -> LinkPredictionResult:
+    """Evaluate link prediction over ``triples`` (default: the test split)
+    on the device the tables lie on. ``index`` must be built with
+    ``for_eval=True`` (all-splits group lists). ``plain=True`` counts
+    through the plain PyTorch versions instead of the kernels: the
+    reference the kernel path is held to on the card. TransR ranks
+    relation by relation over projected tables."""
+    check_supported(cfg)
+    if triples is None:
+        triples = ds.test
+    if triples is None or len(triples) == 0:
+        raise ValueError("no test triples")
+    if index.hr_all is None or index.tr_all is None:
+        raise ValueError("link_prediction needs an eval index "
+                         "(build_kg_index(for_eval=True))")
+    guard_finite_params(params)
+
+    dev = params["ent_embeddings"].device
+    h_all, t_all, r_all = triples[:, H], triples[:, T], triples[:, R]
+    # host side: only the (off, cnt) window lookups; the known-id windows
+    # are gathered on the device
+    offt, cntt = index.hr_all.lookup(h_all, r_all)
+    offh, cnth = index.tr_all.lookup(t_all, r_all)
+    k_max = int(max(cntt.max(), cnth.max(), 1))
+    k_max = -(-k_max // 64) * 64
+    vals_t = torch.from_numpy(index.hr_all.sorted_vals.astype(np.int32)).to(dev)
+    vals_h = torch.from_numpy(index.tr_all.sorted_vals.astype(np.int32)).to(dev)
+    ranks = (_grouped_link_prediction if cfg.model == "transr"
+             else _transe_link_prediction)(
+        params, cfg, ds, triples, (offt, cntt, offh, cnth), k_max, vals_t,
+        vals_h, plain, log)
     return LinkPredictionResult(
         raw_head=DirectionMetrics.from_ranks(ranks["raw_head"]),
         raw_tail=DirectionMetrics.from_ranks(ranks["raw_tail"]),

@@ -16,6 +16,7 @@ from openkeonspark_tpu.config import Config
 from openkeonspark_tpu_torch.eval.classification import (Thresholds,
                                                          score_triples)
 from openkeonspark_tpu_torch.eval.scoring import candidate_scores
+from openkeonspark_tpu_torch.runtime import check_predict_supported
 
 
 @torch.no_grad()
@@ -51,6 +52,7 @@ def predict_relation(params, cfg: Config, n_ent: int, n_rel: int,
                      h: int, t: int, k: int = 10
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k relations for (h, ?, t): every relation id scored directly."""
+    check_predict_supported(cfg)
     trip = np.stack([np.full(n_rel, h), np.full(n_rel, t),
                      np.arange(n_rel)], axis=1)
     scores = score_triples(params, cfg, n_ent, n_rel, trip)
@@ -63,6 +65,7 @@ def predict_triple(params, cfg: Config, n_ent: int, n_rel: int, h: int,
                    threshold: Optional[float] = None) -> Dict[str, object]:
     """Classify one triple: score < threshold ⇒ true. Give either fitted
     :class:`Thresholds` or an explicit scalar threshold."""
+    check_predict_supported(cfg)
     score = float(score_triples(params, cfg, n_ent, n_rel,
                                 np.array([[h, t, r]]))[0])
     if threshold is None:

@@ -16,13 +16,13 @@ import torch
 
 from openkeonspark_tpu.config import Config
 from openkeonspark_tpu_torch.models.base import pnorm
-from openkeonspark_tpu_torch.runtime import check_supported
+from openkeonspark_tpu_torch.runtime import check_predict_supported
 
 
 def build_queries(params: Dict[str, torch.Tensor], h: torch.Tensor,
                   t: torch.Tensor, r: torch.Tensor, replace: str,
                   cfg: Config) -> Dict[str, torch.Tensor]:
-    check_supported(cfg)
+    check_predict_supported(cfg)
     E, R = params["ent_embeddings"], params["rel_embeddings"]
     if replace == "tail":
         return {"q": E[h] + R[r]}

@@ -3,3 +3,4 @@ from openkeonspark_tpu_torch.models.base import (KGEModel,  # noqa: F401
                                                  init_tables, padded_rows,
                                                  strip_padding)
 from openkeonspark_tpu_torch.models.transe import TransE  # noqa: F401
+from openkeonspark_tpu_torch.models.transr import TransR  # noqa: F401

@@ -76,7 +76,9 @@ def pnorm(x: torch.Tensor, p: int, dim: int = -1) -> torch.Tensor:
 
 class KGEModel(nn.Module):
     """Holds a model's tables and scores triples. Subclasses set ``name``
-    and implement :meth:`tables`, :meth:`gathers` and :meth:`score`."""
+    and implement :meth:`tables`, :meth:`gathers` and :meth:`score`, which
+    is static (slots and config in, scores out) as in the JAX package, so
+    the training step scores gathered rows without a module instance."""
 
     name: str = ""
 
@@ -107,7 +109,8 @@ class KGEModel(nn.Module):
     def gathers() -> Tuple[Gather, ...]:
         raise NotImplementedError
 
-    def score(self, slots: Slots) -> torch.Tensor:
+    @staticmethod
+    def score(slots: Slots, cfg: Config) -> torch.Tensor:
         raise NotImplementedError
 
     def gather_slots(self, h: torch.Tensor, t: torch.Tensor,
@@ -119,7 +122,7 @@ class KGEModel(nn.Module):
     def score_triples(self, h: torch.Tensor, t: torch.Tensor,
                       r: torch.Tensor) -> torch.Tensor:
         """predict_def parity: score arbitrary id triples (lower=better)."""
-        return self.score(self.gather_slots(h, t, r))
+        return self.score(self.gather_slots(h, t, r), self.cfg)
 
 
 _REGISTRY: Dict[str, type] = {}
@@ -131,9 +134,9 @@ def register(model_cls: type) -> type:
 
 
 def get_model(name: str) -> type:
-    from openkeonspark_tpu_torch.models import transe  # noqa: F401
+    from openkeonspark_tpu_torch.models import transe, transr  # noqa: F401
     if name not in _REGISTRY:
         raise NotPortedError(
             f"model {name!r} is not yet ported to openkeonspark_tpu_torch "
-            "(only transe); see ROADMAP.md queue A")
+            "(only transe and transr); see ROADMAP.md queue A")
     return _REGISTRY[name]

@@ -35,6 +35,6 @@ class TransE(KGEModel):
             ("r_e", "rel_embeddings", "r"),
         )
 
-    def score(self, slots: Slots) -> torch.Tensor:
-        return pnorm(slots["h_e"] + slots["r_e"] - slots["t_e"],
-                     self.cfg.p_norm)
+    @staticmethod
+    def score(slots: Slots, cfg: Config) -> torch.Tensor:
+        return pnorm(slots["h_e"] + slots["r_e"] - slots["t_e"], cfg.p_norm)

@@ -6,6 +6,8 @@ on a machine without a usable card raises."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from openkeonspark_tpu.config import Config
@@ -37,10 +39,11 @@ def eval_chunk_size(cfg: Config) -> int:
 def check_supported(cfg: Config) -> None:
     """Refuse the options the evaluation slice does not cover, instead of
     ignoring them."""
-    if cfg.model != "transe":
+    if cfg.model not in ("transe", "transr"):
         raise NotPortedError(
             f"model {cfg.model!r} is not yet ported to "
-            "openkeonspark_tpu_torch (only transe); see ROADMAP.md queue A")
+            "openkeonspark_tpu_torch (only transe and transr); see "
+            "ROADMAP.md queue A")
     if cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1 or cfg.num_processes > 1:
         raise NotPortedError(
             f"multi-device evaluation (mesh {cfg.mesh_shape}, "
@@ -54,3 +57,24 @@ def check_supported(cfg: Config) -> None:
         raise NotPortedError(
             f"eval_dtype {cfg.eval_dtype!r} is not yet ported (the port "
             "scores in float32); see ROADMAP.md queue A")
+
+
+def check_predict_supported(cfg: Config) -> None:
+    """The top-k ``predict_*`` queries cover TransE only."""
+    check_supported(cfg)
+    if cfg.model != "transe":
+        raise NotPortedError(
+            f"predict_* for model {cfg.model!r} is not yet ported (only "
+            "transe); see ROADMAP.md queue A")
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """fp32 matrix products on the card in full fp32 (no TF32), whatever
+    the process-wide setting; restores it on exit."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -79,6 +79,50 @@ def test_cli_refuses_unported_options(exported, extra):
                       + extra)
 
 
+@pytest.fixture(scope="module")
+def exported_transr(tmp_path_factory):
+    """A planted KG on disk and a JAX export of seeded TransR tables."""
+    root = tmp_path_factory.mktemp("cli_transr")
+    ds = planted_kg(n_ent=100, n_rel=4, n_triples=1200, n_valid=50,
+                    n_test=50, dim=8, noise=0.0, seed=2, model="transr")
+    save_dataset(ds, str(root / "kg"))
+    cfg = Config(model="transr", ent_size=12, rel_size=6, eval_chunk=32)
+    st = init_state(jax_get_model("transr"), cfg, ds.n_ent, ds.n_rel,
+                    jax.random.key(3))
+    jax_export(st.params, jax_get_model("transr"), cfg, ds.n_ent, ds.n_rel,
+               str(root / "ckpt" / "embedding.vec.json"))
+    return root, ds, cfg, st.params
+
+
+def _transr_argv(root, *extra):
+    return ["--input", str(root / "kg"), "--checkpoint", str(root / "ckpt"),
+            "--model", "transr", "--ent_size", "12", "--rel_size", "6",
+            "--eval_chunk", "32", "--device", "cpu", *extra]
+
+
+def test_cli_transr_prints_jax_table(exported_transr, capsys):
+    """TransR link prediction (relation by relation through the count
+    kernel's plain version) prints the JAX package's table on the same
+    tables."""
+    root, ds, cfg, jp = exported_transr
+    evaluate.main(_transr_argv(root, "--link_prediction",
+                               "--triple_classification"))
+    out = capsys.readouterr().out
+    want = jax_link_prediction(jp, cfg, ds,
+                               build_kg_index(ds, for_eval=True))
+    assert want.format_table() in out
+    assert "triple classification: {'accuracy':" in out
+
+
+@pytest.mark.parametrize("query", [["--predict_tail", "0,0"],
+                                   ["--predict_head", "1,0"],
+                                   ["--predict_rel", "0,1"]])
+def test_cli_transr_refuses_predict(exported_transr, query):
+    root = exported_transr[0]
+    with pytest.raises(NotPortedError, match="ROADMAP"):
+        evaluate.main(_transr_argv(root, *query))
+
+
 def test_port_imports_no_jax():
     """A fresh interpreter that imports every module of the port loads no
     jax (the JAX package's numpy-only modules it reuses included)."""
@@ -86,9 +130,17 @@ def test_port_imports_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import openkeonspark_tpu_torch.cli.evaluate, "
+        "openkeonspark_tpu_torch.cli.train, "
         "openkeonspark_tpu_torch.eval, openkeonspark_tpu_torch.ops.rank, "
+        "openkeonspark_tpu_torch.ops.grouped, "
         "openkeonspark_tpu_torch.ops.build, openkeonspark_tpu_torch.data, "
-        "openkeonspark_tpu_torch.config\n"
+        "openkeonspark_tpu_torch.config, openkeonspark_tpu_torch.ckpt, "
+        "openkeonspark_tpu_torch.models.transr, "
+        "openkeonspark_tpu_torch.sampling.device, "
+        "openkeonspark_tpu_torch.train.loss, "
+        "openkeonspark_tpu_torch.train.optim, "
+        "openkeonspark_tpu_torch.train.step, "
+        "openkeonspark_tpu_torch.train.loop\n"
         "added = set(sys.modules) - before\n"
         "bad = sorted(m for m in added if m.split('.')[0] in "
         "('jax', 'jaxlib'))\n"

@@ -60,3 +60,27 @@ def require_cuda():
     import pytest
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels build with nvcc there)")
+
+
+def transr_near_tie_counts(ent: np.ndarray, rel: np.ndarray,
+                           transfer: np.ndarray, triples: np.ndarray,
+                           p: int) -> dict:
+    """As :func:`transe_near_tie_counts` for TransR: candidates are scored
+    in relation space, ``‖h·M_r + v_r − t·M_r‖`` in float64."""
+    de, dr = ent.shape[1], rel.shape[1]
+    out = {"tail": np.zeros(len(triples), np.int64),
+           "head": np.zeros(len(triples), np.int64)}
+    for r in np.unique(triples[:, 2]):
+        rows = np.flatnonzero(triples[:, 2] == r)
+        proj = ent.astype(np.float64) @ transfer[r].reshape(de, dr)
+        sub = triples[rows]
+        for name, q, sign, gold_ids in (
+                ("tail", proj[sub[:, 0]] + rel[r], -1.0, sub[:, 1]),
+                ("head", rel[r] - proj[sub[:, 1]], 1.0, sub[:, 0])):
+            s = residual_scores64(q, proj, sign, p)
+            gold = s[np.arange(len(sub)), gold_ids]
+            gap = np.abs(s - gold[:, None])
+            gap[np.arange(len(sub)), gold_ids] = np.inf
+            out[name][rows] = (gap <= NEAR_TIE_RTOL * np.abs(gold)[:, None]
+                               ).sum(1)
+    return out
