@@ -8,15 +8,15 @@ parts of the reference (``data``, ``config.Config``, ``cli.args``) are
 reused by import, never copied. The package imports ``torch`` and never
 ``jax``.
 
-Ported so far: evaluation ("serving") for TransE and TransR — link
-prediction, triple classification and, for TransE, the top-k
-``predict_*`` queries — driven by
-``python -m openkeonspark_tpu_torch.cli.evaluate``, and training for
-TransE and TransR (sampler, losses, sparse SGD, epoch loop, checkpoints)
-driven by ``python -m openkeonspark_tpu_torch.cli.train``. Two kernels
-are hand-written CUDA: the rank count (``ops/csrc/rank_count.cu``) and
-TransR's relation-grouped projection, forward and backward
-(``ops/csrc/grouped_project.cu``).
+Ported so far: evaluation ("serving") for TransE, TransH, TransR, TransD
+and RotatE — link prediction, triple classification and, for all but
+TransR, the top-k ``predict_*`` queries — driven by
+``python -m openkeonspark_tpu_torch.cli.evaluate``, and training for the
+same five models (sampler, losses, sparse SGD, epoch loop, checkpoints)
+driven by ``python -m openkeonspark_tpu_torch.cli.train``. The kernels are
+hand-written CUDA: the rank counts of TransE, TransH, TransD and RotatE
+(``ops/csrc/rank_count*.cu``) and TransR's relation-grouped projection,
+forward and backward (``ops/csrc/grouped_project.cu``).
 """
 
 __version__ = "0.1.0"

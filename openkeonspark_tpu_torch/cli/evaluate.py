@@ -13,8 +13,10 @@ Usage:
         --link_prediction --triple_classification
     python -m openkeonspark_tpu_torch.cli.evaluate ... --predict_tail 123,7
 
-Models: transe and transr (``--ent_size`` / ``--rel_size``); the
-``--predict_*`` queries cover transe only.
+Models: transe, transh, transd, rotate, and transr (``--ent_size`` /
+``--rel_size``); the ``--predict_*`` queries cover all but transr. TransH
+ranks relation by relation through the TransE count kernel, or, with
+``OKST_EVAL_TRANSH_KERNEL=1``, chunk by chunk through its own kernel.
 """
 
 from __future__ import annotations

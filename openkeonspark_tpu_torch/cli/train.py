@@ -4,8 +4,8 @@ optionally evaluate.
 
 Same flags and printout as ``openkeonspark_tpu.cli.train``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
-Models: transe (generic step) and transr (the relation-grouped step, CUDA
-kernels on the card). Options the port does not cover yet (meshes and
+Models: transe, transh, transd and rotate (generic step) and transr (the
+relation-grouped step, CUDA kernels on the card). Options the port does not cover yet (meshes and
 coordinators, ``--sampler host``, ``--batch_number``, ``--type_constrain``,
 optimizers other than sgd, TransR off the grouped route) raise
 ``NotPortedError``.

@@ -7,4 +7,5 @@ from openkeonspark_tpu.data.dataset import (H, R, T, Dataset,  # noqa: F401
 from openkeonspark_tpu.data.index import (GroupIndex, KGIndex,  # noqa: F401
                                           build_kg_index)
 from openkeonspark_tpu.data.synth import (fb15k237_like,  # noqa: F401
-                                          fb15k_like, planted_kg, random_kg)
+                                          fb15k_like, planted_kg, random_kg,
+                                          wn18rr_like)

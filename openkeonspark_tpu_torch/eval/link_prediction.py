@@ -2,23 +2,27 @@
 head / tail / averaged.
 
 Counterpart of ``openkeonspark_tpu/eval/link_prediction.py`` (``:50-110``,
-``:295-431``, ``:491-644``) for TransE and TransR. The rank of the gold
-entity is ``1 + #{candidates scoring strictly better}``: a chunk of test
-triples is counted against the whole entity table in one fused pass
-(``ops/rank.py::count_better_transe``, a CUDA kernel on the card). The
-filtered rank subtracts the known-true candidates (all splits) that score
-better: their ids are gathered on the device from the group index into a
-``[C, K]`` window padded with ``n_ent`` and scored through the same
-arithmetic as the count, so the subtraction is tie-exact.
+``:212-258``, ``:295-431``, ``:491-644``) for TransE, TransH, TransR, TransD
+and RotatE. The rank of the gold entity is ``1 + #{candidates scoring
+strictly better}``: a chunk of test triples is counted against the whole
+entity table in one fused pass by the model's count kernel
+(``ops/rank.py``: B1 TransE, B6 TransH, B2 TransD, B3 RotatE; CUDA on the
+card). The filtered rank subtracts the known-true candidates (all splits)
+that score better: their ids are gathered on the device from the group
+index into a ``[C, K]`` window padded with ``n_ent`` and scored through
+the same arithmetic as the count, so the subtraction is tie-exact.
 
-TransR goes relation by relation (:func:`_grouped_link_prediction`): test
-triples are sorted by relation into single-relation chunks, the entity
-table is projected once per chunk (``E @ M_ρ``, a plain fp32 matmul) and
-the count sweeps the projected table TransE-style, gold and known-true
-scores coming from the same projected table."""
+TransR, and TransH by default, go relation by relation
+(:func:`_grouped_link_prediction`), as the reference does: test triples
+are sorted by relation into single-relation chunks, the entity table is
+projected once per chunk (``E @ M_ρ``, or ``E − (E·ŵ_ρ)ŵ_ρ``) and B1
+sweeps the projected table, gold and known-true scores coming from the
+same projected table. ``OKST_EVAL_TRANSH_KERNEL=1`` sends TransH chunk by
+chunk through B6 instead, as the reference's switch does."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -28,6 +32,7 @@ import torch
 from openkeonspark_tpu.config import Config
 from openkeonspark_tpu.data.dataset import Dataset, H, R, T
 from openkeonspark_tpu.data.index import KGIndex
+from openkeonspark_tpu_torch.models.transh import unit
 from openkeonspark_tpu_torch.ops import rank as rank_ops
 from openkeonspark_tpu_torch.runtime import (check_supported, eval_chunk_size,
                                              full_fp32_matmul)
@@ -123,34 +128,39 @@ def known_matrix(sorted_vals: torch.Tensor, off: torch.Tensor,
     return torch.where(lane < cnt[:, None], sorted_vals[src], pad)
 
 
-def _count_chunk(q: torch.Tensor, sign: float, table: torch.Tensor,
-                 gold_ids: torch.Tensor, known: torch.Tensor, n_ent: int,
-                 p: int, plain: bool):
+def _scorers(model: str, ops: tuple, sign: float, p: int, n_ent: int,
+             plain: bool):
+    """(count(gold, gold_ids), scores(ids)) of one query chunk through the
+    model's kernel pair, or its plain versions; ``ops`` are the model's
+    leading operands (``ops/rank.py::model_queries``)."""
+    count, scores = rank_ops.KERNELS[model][2 * plain:2 * plain + 2]
+    norm = () if model == "rotate" else (p,)   # RotatE has no p
+    return (lambda gold, gold_ids: count(*ops, gold, gold_ids, sign, *norm,
+                                         n_ent),
+            lambda ids: scores(*ops, ids, sign, *norm))
+
+
+def _count_chunk(count, scores, rows: int, gold_ids: torch.Tensor,
+                 known: torch.Tensor, n_ent: int):
     """Raw and filtered counts of strictly better candidates for one query
-    chunk scored as ``‖q + sign·table[e]‖_p``; ``gold_ids`` [C] and
-    ``known`` [C, K] int32."""
-    if plain:
-        count, scores = (rank_ops.count_better_transe_ref,
-                         rank_ops.transe_candidate_scores_ref)
-    else:
-        count, scores = (rank_ops.count_better_transe,
-                         rank_ops.transe_candidate_scores)
-    gold_s = scores(q, table, gold_ids, sign, p)
-    raw = count(q, table, gold_s, gold_ids, sign, p, n_ent)
-    ks = scores(q, table, known.clamp(max=table.shape[0] - 1), sign, p)
+    chunk (:func:`_scorers`); ``gold_ids`` [C] and ``known`` [C, K] int32,
+    ``rows`` the swept table's rows."""
+    gold_s = scores(gold_ids)
+    raw = count(gold_s, gold_ids)
+    ks = scores(known.clamp(max=rows - 1))
     kvalid = (known < n_ent) & (known != gold_ids[:, None])
     known_better = ((ks < gold_s[:, None]) & kvalid).sum(1, dtype=torch.int32)
     return raw, raw - known_better
 
 
-def _rank_chunk(params, h, t, r, gold_ids, known, replace: str, n_ent: int,
-                p: int, plain: bool):
-    """TransE chunk: queries ``E[h] + R[r]`` (tail) or ``R[r] − E[t]``
-    (head) against the entity table."""
-    q, sign = rank_ops.transe_queries(params, h.long(), t.long(), r.long(),
-                                      replace)
-    return _count_chunk(q, sign, params["ent_embeddings"], gold_ids, known,
-                        n_ent, p, plain)
+def _chunk_scorers(cfg: Config, params, cdot, h, t, r, replace: str,
+                   n_ent: int, plain: bool):
+    """The queries of a chunk of test triples and their scorers, by model:
+    the JAX package's ``_rank_chunk_kernel`` (``link_prediction.py:212-258``).
+    ``cdot`` is TransD's per-entity dot (None otherwise)."""
+    ops, sign = rank_ops.model_queries(cfg.model, params, cdot, h.long(),
+                                       t.long(), r.long(), replace)
+    return _scorers(cfg.model, ops, sign, cfg.p_norm, n_ent, plain)
 
 
 def _single_relation_chunks(r_all: np.ndarray, chunk: int):
@@ -169,17 +179,37 @@ def _single_relation_chunks(r_all: np.ndarray, chunk: int):
     return np.asarray(rels, np.int64), np.stack(pos)
 
 
+def _relation_projection(cfg: Config, params):
+    """ρ → the entity table projected for relation ρ: ``E @ M_ρ`` [rows,
+    d_r] for TransR, ``E − (E·ŵ_ρ)ŵ_ρ`` [rows, d] for TransH (the JAX
+    package's ``_rank_scan_grouped`` ``project``, ``:345-352``)."""
+    E = params["ent_embeddings"]
+    if cfg.model == "transr":
+        TM, de, dr = params["transfer_matrix"], cfg.d_ent, cfg.d_rel
+        return lambda rho: E @ TM[rho].view(de, dr)
+    W = unit(params["normal_vectors"])
+    return lambda rho: E - (E @ W[rho])[:, None] * W[rho]
+
+
+def use_grouped_route(cfg: Config) -> bool:
+    """TransR, and TransH unless ``OKST_EVAL_TRANSH_KERNEL=1`` sends it
+    chunk by chunk through B6 (the reference's A/B switch,
+    ``link_prediction.py:462-464``), rank relation by relation."""
+    return cfg.model == "transr" or (
+        cfg.model == "transh"
+        and os.environ.get("OKST_EVAL_TRANSH_KERNEL") != "1")
+
+
 def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
                              triples: np.ndarray, offs, k_max: int,
                              vals_t, vals_h, plain: bool, log=None):
-    """TransR ranks, one relation-sharing chunk at a time (the JAX
-    package's ``_grouped_link_prediction`` / ``_rank_scan_grouped``): the
-    entity table is projected once per chunk and both directions sweep the
-    projected ``[rows, d_r]`` table with the count kernel."""
+    """Ranks one relation-sharing chunk at a time (the JAX package's
+    ``_grouped_link_prediction`` / ``_rank_scan_grouped``): the entity
+    table is projected once per chunk and both directions sweep the
+    projected table with the TransE count kernel (B1)."""
     dev = params["ent_embeddings"].device
-    E, Rt = params["ent_embeddings"], params["rel_embeddings"]
-    TM = params["transfer_matrix"]
-    de, dr = cfg.d_ent, cfg.d_rel
+    project = _relation_projection(cfg, params)
+    Rt = params["rel_embeddings"]
     chunk = min(eval_chunk_size(cfg), 64)   # small chunks bound the padding
     rel, posm = _single_relation_chunks(triples[:, R], chunk)
     on = lambda a: torch.from_numpy(  # noqa: E731
@@ -189,19 +219,22 @@ def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
     out = {k: [] for k in ("raw_tail", "filt_tail", "raw_head", "filt_head")}
     with full_fp32_matmul():
         for ci, rho in enumerate(rel.tolist()):
-            proj = E @ TM[rho].view(de, dr)                 # [rows, dr]
+            proj = project(rho)                          # [rows, d']
             rvec = Rt[rho]
             hq, tq = h[ci], t[ci]
-            q_t = (proj[hq.long()] + rvec).contiguous()
-            q_h = (rvec - proj[tq.long()]).contiguous()
             kt = known_matrix(vals_t, ot[ci], ct[ci], k_max, ds.n_ent)
             kh = known_matrix(vals_h, oh[ci], ch[ci], k_max, ds.n_ent)
-            for k, v in zip(("raw_tail", "filt_tail"), _count_chunk(
-                    q_t, -1.0, proj, tq, kt, ds.n_ent, cfg.p_norm, plain)):
-                out[k].append(v)
-            for k, v in zip(("raw_head", "filt_head"), _count_chunk(
-                    q_h, 1.0, proj, hq, kh, ds.n_ent, cfg.p_norm, plain)):
-                out[k].append(v)
+            for keys, q, sign, gold, known in (
+                    (("raw_tail", "filt_tail"),
+                     proj[hq.long()] + rvec, -1.0, tq, kt),
+                    (("raw_head", "filt_head"),
+                     rvec - proj[tq.long()], 1.0, hq, kh)):
+                count, scores = _scorers("transe", (q.contiguous(), proj),
+                                         sign, cfg.p_norm, ds.n_ent, plain)
+                for k, v in zip(keys, _count_chunk(count, scores,
+                                                   proj.shape[0], gold,
+                                                   known, ds.n_ent)):
+                    out[k].append(v)
     ranks = {k: np.empty(len(triples), np.int64) for k in out}
     for k, v in out.items():
         # pad slots repeat their chunk's first triple: equal values
@@ -211,11 +244,16 @@ def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
     return ranks
 
 
-def _transe_link_prediction(params, cfg: Config, ds: Dataset,
-                            triples: np.ndarray, offs, k_max: int, vals_t,
-                            vals_h, plain: bool, log=None):
-    """TransE ranks, chunk by chunk in the order of ``triples``."""
+def _chunked_link_prediction(params, cfg: Config, ds: Dataset,
+                             triples: np.ndarray, offs, k_max: int, vals_t,
+                             vals_h, plain: bool, log=None):
+    """Ranks chunk by chunk in the order of ``triples``, each chunk swept
+    over the whole entity table by the model's count kernel."""
     dev = params["ent_embeddings"].device
+    rows = params["ent_embeddings"].shape[0]
+    # TransD's per-entity dot, once per evaluation and shared by every
+    # count and id score
+    cdot = rank_ops.transd_cdot(params) if cfg.model == "transd" else None
     chunk = eval_chunk_size(cfg)
     h_all, t_all, r_all = triples[:, H], triples[:, T], triples[:, R]
     offt, cntt, offh, cnth = offs
@@ -236,15 +274,15 @@ def _transe_link_prediction(params, cfg: Config, ds: Dataset,
             sl = slice(c, c + chunk)
             kt = known_matrix(vals_t, ot[sl], ct[sl], k_max, ds.n_ent)
             kh = known_matrix(vals_h, oh[sl], ch[sl], k_max, ds.n_ent)
-            raw_t, filt_t = _rank_chunk(params, h[sl], t[sl], r[sl], t[sl],
-                                        kt, "tail", ds.n_ent, cfg.p_norm,
-                                        plain)
-            raw_h, filt_h = _rank_chunk(params, h[sl], t[sl], r[sl], h[sl],
-                                        kh, "head", ds.n_ent, cfg.p_norm,
-                                        plain)
-            for k, v in (("raw_tail", raw_t), ("filt_tail", filt_t),
-                         ("raw_head", raw_h), ("filt_head", filt_h)):
-                out[k].append(v)
+            for replace, gold, known in (("tail", t[sl], kt),
+                                         ("head", h[sl], kh)):
+                count, scores = _chunk_scorers(cfg, params, cdot, h[sl],
+                                               t[sl], r[sl], replace,
+                                               ds.n_ent, plain)
+                raw, filt = _count_chunk(count, scores, rows, gold, known,
+                                         ds.n_ent)
+                out[f"raw_{replace}"].append(raw)
+                out[f"filt_{replace}"].append(filt)
         for k in ranks:
             ranks[k][s:e] = torch.cat(out[k]).cpu().numpy()
         if log is not None:
@@ -262,8 +300,9 @@ def link_prediction(params: Dict[str, torch.Tensor], cfg: Config,
     on the device the tables lie on. ``index`` must be built with
     ``for_eval=True`` (all-splits group lists). ``plain=True`` counts
     through the plain PyTorch versions instead of the kernels: the
-    reference the kernel path is held to on the card. TransR ranks
-    relation by relation over projected tables."""
+    reference the kernel path is held to on the card. TransR and TransH
+    rank relation by relation over projected tables
+    (:func:`use_grouped_route`)."""
     check_supported(cfg)
     if triples is None:
         triples = ds.test
@@ -284,8 +323,8 @@ def link_prediction(params: Dict[str, torch.Tensor], cfg: Config,
     k_max = -(-k_max // 64) * 64
     vals_t = torch.from_numpy(index.hr_all.sorted_vals.astype(np.int32)).to(dev)
     vals_h = torch.from_numpy(index.tr_all.sorted_vals.astype(np.int32)).to(dev)
-    ranks = (_grouped_link_prediction if cfg.model == "transr"
-             else _transe_link_prediction)(
+    ranks = (_grouped_link_prediction if use_grouped_route(cfg)
+             else _chunked_link_prediction)(
         params, cfg, ds, triples, (offt, cntt, offh, cnth), k_max, vals_t,
         vals_h, plain, log)
     return LinkPredictionResult(

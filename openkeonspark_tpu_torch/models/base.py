@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from openkeonspark_tpu.config import Config
-from openkeonspark_tpu_torch.runtime import NotPortedError
+from openkeonspark_tpu_torch.runtime import check_model_ported
 
 Params = Dict[str, torch.Tensor]
 Slots = Dict[str, torch.Tensor]
@@ -134,9 +134,7 @@ def register(model_cls: type) -> type:
 
 
 def get_model(name: str) -> type:
-    from openkeonspark_tpu_torch.models import transe, transr  # noqa: F401
-    if name not in _REGISTRY:
-        raise NotPortedError(
-            f"model {name!r} is not yet ported to openkeonspark_tpu_torch "
-            "(only transe and transr); see ROADMAP.md queue A")
+    from openkeonspark_tpu_torch.models import (rotate, transd,  # noqa: F401
+                                                transe, transh, transr)
+    check_model_ported(name)
     return _REGISTRY[name]

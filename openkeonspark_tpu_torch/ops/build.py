@@ -33,6 +33,22 @@ SIGNATURES = {
     "okst_count_better_transe": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, table, ids, out, C, K, D, rows, sign, p, stream
     "okst_transe_score_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, w, table, gold, gold_ids, counts, C, D, n_ent, sign, p, stream
+    "okst_count_better_transh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                 _P),
+    # q, w, table, ids, out, C, K, D, rows, sign, p, stream
+    "okst_transh_score_ids": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, rp, table, cdot, gold, gold_ids, counts, C, D, n_ent, sign, p,
+    # stream
+    "okst_count_better_transd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                 _I, _P),
+    # q, rp, table, cdot, ids, out, C, K, D, rows, sign, p, stream
+    "okst_transd_score_ids": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                              _P),
+    # q, table, gold, gold_ids, counts, C, d, n_ent, sign, stream
+    "okst_count_better_rotate": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # q, table, ids, out, C, K, d, rows, sign, stream
+    "okst_rotate_score_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # m3, x, rel_off, y, rows, de, dr, stream
     "okst_grouped_project_fwd": (_P, _P, _P, _P, _I, _I, _I, _P),
     # m3, x, g, rel_off, dx, dm, rows, de, dr, stream

@@ -11,7 +11,7 @@
 // counterpart of pallas_rank.py::transe_candidate_scores.
 //
 // Order of operations is part of the contract. Both launchers go through the
-// same residual-norm routine, dist / dist_step: the sum runs over
+// same residual-norm routine, dist / norm_step: the sum runs over
 // d = 0 .. D-1 in sequence, in fp32, with __fadd_rn / __fmul_rn so that no
 // step is contracted into an FMA. sign is +-1, so sign * e is exact. Gold,
 // known and candidate scores are therefore bit-identical for the same
@@ -21,31 +21,24 @@
 // What bounds it on an H100: fp32 ALU work, 2 directions x 20466 test
 // triples x 14541 entities x 200 lanes x ~3 operations at the FB15K-237
 // shape; the 11.6 MB entity table stays resident in the 50 MB L2, so device
-// memory bytes do not bound it. The design is the simple one: a 2-D grid of
-// 128-candidate x 16-query tiles; each thread owns one candidate and keeps
-// 16 fp32 accumulators; query rows and candidate rows are staged in shared
-// memory in d-chunks of 32 with coalesced loads; after the last chunk each
-// warp counts its better candidates with __ballot_sync / __popc and adds
-// them with one integer atomicAdd per query (integer atomics are order-free,
-// so counts are deterministic). Making it fast is later work; tensor cores
-// may serve p=2 only with a gold path through the same arithmetic and no
-// TF32.
+// memory bytes do not bound it. The design is the simple one of
+// rank_common.cuh (128-candidate x 16-query tiles, d-chunks of 32 staged in
+// shared memory, a ballot count per warp). Making it fast is later work;
+// tensor cores may serve p=2 only with a gold path through the same
+// arithmetic and no TF32.
 //
 // Plain C interface, loaded with ctypes (ops/build.py); each launcher
 // returns the cudaError_t of its launch.
 
-#include <cuda_runtime.h>
+#include "rank_common.cuh"
 
 namespace {
 
-constexpr int kCandTile = 128;  // candidates per block, one per thread
-constexpr int kQueryTile = 16;  // queries per block
-constexpr int kDChunk = 32;     // embedding lanes staged per pass
+using namespace okst;
 
 template <int P>
 __device__ __forceinline__ float dist_step(float acc, float qv, float sev) {
-  const float r = __fadd_rn(qv, sev);
-  return __fadd_rn(acc, P == 1 ? fabsf(r) : __fmul_rn(r, r));
+  return norm_step<P>(acc, __fadd_rn(qv, sev));
 }
 
 // ||q_row + sign * e_row||_p over d = 0 .. D-1 in sequence.
@@ -80,19 +73,8 @@ count_better_kernel(const float* __restrict__ q,
 
   for (int d0 = 0; d0 < D; d0 += kDChunk) {
     const int dn = min(kDChunk, D - d0);
-    for (int i = tid; i < kQueryTile * kDChunk; i += kCandTile) {
-      const int j = i / kDChunk, dd = i % kDChunk;
-      qs[dd][j] = (q0 + j < C && dd < dn)
-                      ? q[static_cast<size_t>(q0 + j) * D + d0 + dd]
-                      : 0.0f;
-    }
-    // a warp reads 32 consecutive lanes of one row: coalesced
-    for (int i = tid; i < kCandTile * kDChunk; i += kCandTile) {
-      const int c = i / kDChunk, dd = i % kDChunk;
-      es[dd][c] = (c0 + c < n_ent && dd < dn)
-                      ? table[static_cast<size_t>(c0 + c) * D + d0 + dd]
-                      : 0.0f;
-    }
+    stage<kQueryTile>(qs, q, q0, C, D, d0, dn);
+    stage<kCandTile>(es, table, c0, n_ent, D, d0, dn);
     __syncthreads();
     for (int dd = 0; dd < dn; ++dd) {
       const float sev = __fmul_rn(sign, es[dd][tid]);
@@ -108,20 +90,7 @@ count_better_kernel(const float* __restrict__ q,
     }
     __syncthreads();
   }
-
-  const int e = c0 + tid;
-  const bool lane0 = (tid & 31) == 0;
-#pragma unroll
-  for (int j = 0; j < kQueryTile; ++j) {
-    const int c = q0 + j;  // uniform across the block
-    bool better = false;
-    if (c < C) {
-      const int gid = gold_ids[c];
-      better = e < n_ent && gid != -1 && e != gid && acc[j] < gold[c];
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, better);
-    if (lane0 && mask != 0u) atomicAdd(&counts[c], __popc(mask));
-  }
+  count_tile(acc, c0 + tid, q0, C, n_ent, gold, gold_ids, counts);
 }
 
 // out[c, k] = dist(q_c, E[ids[c, k]]); an id outside [0, rows) gives NaN.
@@ -139,7 +108,7 @@ __global__ void score_ids_kernel(const float* __restrict__ q,
   out[i] = (id >= 0 && id < rows)
                ? dist<P>(q + static_cast<size_t>(c) * D,
                          table + static_cast<size_t>(id) * D, sign, D)
-               : __int_as_float(0x7fc00000);
+               : quiet_nan();
 }
 
 }  // namespace
@@ -150,8 +119,7 @@ extern "C" int okst_count_better_transe(const float* q, const float* table,
                                         int C, int D, int n_ent, float sign,
                                         int p, void* stream) {
   if (p != 1 && p != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_ent + kCandTile - 1) / kCandTile,
-                  (C + kQueryTile - 1) / kQueryTile);
+  const dim3 grid = count_grid(n_ent, C);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p == 1) {
     count_better_kernel<1><<<grid, kCandTile, 0, s>>>(
@@ -168,16 +136,14 @@ extern "C" int okst_transe_score_ids(const float* q, const float* table,
                                      int K, int D, int rows, float sign,
                                      int p, void* stream) {
   if (p != 1 && p != 2) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kThreads = 256;
-  const long long n = static_cast<long long>(C) * K;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const unsigned blocks = id_blocks(C, K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p == 1) {
-    score_ids_kernel<1><<<blocks, kThreads, 0, s>>>(q, table, ids, out, C, K,
-                                                    D, rows, sign);
+    score_ids_kernel<1><<<blocks, kIdThreads, 0, s>>>(q, table, ids, out, C,
+                                                      K, D, rows, sign);
   } else {
-    score_ids_kernel<2><<<blocks, kThreads, 0, s>>>(q, table, ids, out, C, K,
-                                                    D, rows, sign);
+    score_ids_kernel<2><<<blocks, kIdThreads, 0, s>>>(q, table, ids, out, C,
+                                                      K, D, rows, sign);
   }
   return static_cast<int>(cudaGetLastError());
 }

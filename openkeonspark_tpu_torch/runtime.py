@@ -16,6 +16,12 @@ from openkeonspark_tpu.config import Config
 # is not called: it imports jax and caps chunks for the TPU's VMEM.
 DEFAULT_EVAL_CHUNK = 256
 
+# the models the port evaluates and trains: get_model, check_supported and
+# check_train_supported refuse any other, naming these
+PORTED_MODELS = ("transe", "transh", "transr", "transd", "rotate")
+# the top-k predict_* queries: TransR's candidate scorer is not ported
+PREDICT_MODELS = ("transe", "transh", "transd", "rotate")
+
 
 class NotPortedError(NotImplementedError):
     """An option the port does not cover yet (see ROADMAP.md queue A)."""
@@ -36,14 +42,17 @@ def eval_chunk_size(cfg: Config) -> int:
     return cfg.eval_chunk if cfg.eval_chunk is not None else DEFAULT_EVAL_CHUNK
 
 
+def check_model_ported(name: str) -> None:
+    if name not in PORTED_MODELS:
+        raise NotPortedError(
+            f"model {name!r} is not yet ported to openkeonspark_tpu_torch "
+            f"(only {', '.join(PORTED_MODELS)}); see ROADMAP.md queue A")
+
+
 def check_supported(cfg: Config) -> None:
     """Refuse the options the evaluation slice does not cover, instead of
     ignoring them."""
-    if cfg.model not in ("transe", "transr"):
-        raise NotPortedError(
-            f"model {cfg.model!r} is not yet ported to "
-            "openkeonspark_tpu_torch (only transe and transr); see "
-            "ROADMAP.md queue A")
+    check_model_ported(cfg.model)
     if cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1 or cfg.num_processes > 1:
         raise NotPortedError(
             f"multi-device evaluation (mesh {cfg.mesh_shape}, "
@@ -60,12 +69,12 @@ def check_supported(cfg: Config) -> None:
 
 
 def check_predict_supported(cfg: Config) -> None:
-    """The top-k ``predict_*`` queries cover TransE only."""
+    """The top-k ``predict_*`` queries cover :data:`PREDICT_MODELS`."""
     check_supported(cfg)
-    if cfg.model != "transe":
+    if cfg.model not in PREDICT_MODELS:
         raise NotPortedError(
             f"predict_* for model {cfg.model!r} is not yet ported (only "
-            "transe); see ROADMAP.md queue A")
+            f"{', '.join(PREDICT_MODELS)}); see ROADMAP.md queue A")
 
 
 @contextlib.contextmanager

@@ -5,6 +5,8 @@ Counterpart of ``openkeonspark_tpu/train/step.py:27-328, 366-389``.
 Gradients are taken with torch autograd with respect to the *gathered*
 slot rows, never the dense tables, and turn into merged per-table row
 updates (:func:`merged_row_updates`) for :class:`~.optim.SparseSGD`.
+TransE, TransH, TransD and RotatE train through this generic step, as in
+the JAX package, where their steps have no Pallas kernel either.
 
 TransR takes the relation-grouped route (:func:`use_grouped_transr`): the
 batch is sorted by relation, every slot row is projected through the
@@ -24,7 +26,8 @@ from openkeonspark_tpu.config import Config
 from openkeonspark_tpu_torch.models.base import (Gather, KGEModel, Params,
                                                  init_tables, pnorm)
 from openkeonspark_tpu_torch.ops.grouped import grouped_project, run_offsets
-from openkeonspark_tpu_torch.runtime import NotPortedError
+from openkeonspark_tpu_torch.runtime import (NotPortedError,
+                                             check_model_ported)
 from openkeonspark_tpu_torch.sampling.device import (DeviceSampler,
                                                      SampledBatch)
 from openkeonspark_tpu_torch.train.loss import margin_ranking_loss
@@ -235,10 +238,7 @@ def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
 
 def check_train_supported(cfg: Config) -> None:
     """Refuse the training options the port does not cover."""
-    if cfg.model not in ("transe", "transr"):
-        raise NotPortedError(
-            f"training model {cfg.model!r} is not yet ported (transe and "
-            "transr); see ROADMAP.md queue A")
+    check_model_ported(cfg.model)
     if cfg.model == "transr" and not use_grouped_transr(cfg):
         raise NotPortedError(
             "TransR training off the relation-grouped route "

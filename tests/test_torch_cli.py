@@ -68,7 +68,7 @@ def test_cli_cuda_without_card_raises(exported, monkeypatch):
         evaluate.main(_argv(root, "--device", "cuda", "--link_prediction"))
 
 
-@pytest.mark.parametrize("extra", [["--model", "transh"],
+@pytest.mark.parametrize("extra", [["--model", "distmult"],
                                    ["--mesh_model", "2"],
                                    ["--type_constrain"],
                                    ["--eval_dtype", "bfloat16"]])

@@ -139,4 +139,4 @@ def test_state_dict_checkpoint_and_directory_lookup(tmp_path):
 def test_unported_model_refused():
     assert get_model("transe") is TransE
     with pytest.raises(NotPortedError, match="ROADMAP"):
-        get_model("transh")
+        get_model("distmult")

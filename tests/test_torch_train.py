@@ -206,7 +206,7 @@ def test_cli_train_end_to_end_matches_jax_ranks(planted_dir, capsys):
 @pytest.mark.parametrize("extra", [
     ["--negative_rel", "1"], ["--opt_method", "adam"],
     ["--sampler", "host"], ["--mesh_model", "2"], ["--batch_number", "1"],
-    ["--model", "transh"], ["--type_constrain"]])
+    ["--model", "distmult"], ["--type_constrain"]])
 def test_cli_train_refuses_unported_options(planted_dir, tmp_path, extra):
     root, _ = planted_dir
     with pytest.raises(NotPortedError, match="ROADMAP"):
