@@ -12,11 +12,13 @@ Ported so far: evaluation ("serving") for TransE, TransH, TransR, TransD
 and RotatE — link prediction, triple classification and, for all but
 TransR, the top-k ``predict_*`` queries — driven by
 ``python -m openkeonspark_tpu_torch.cli.evaluate``, and training for the
-same five models (sampler, losses, sparse SGD, epoch loop, checkpoints)
-driven by ``python -m openkeonspark_tpu_torch.cli.train``. The kernels are
+same five models (sampler, losses, sparse SGD and lazy Adam / Adagrad /
+Adadelta, epoch loop, checkpoints) driven by
+``python -m openkeonspark_tpu_torch.cli.train``. The kernels are
 hand-written CUDA: the rank counts of TransE, TransH, TransD and RotatE
-(``ops/csrc/rank_count*.cu``) and TransR's relation-grouped projection,
-forward and backward (``ops/csrc/grouped_project.cu``).
+(``ops/csrc/rank_count*.cu``), TransR's relation-grouped projection,
+forward and backward (``ops/csrc/grouped_project.cu``), and the sorted-run
+scatter-add into wide rows (``ops/csrc/scatter_rows.cu``).
 """
 
 __version__ = "0.1.0"

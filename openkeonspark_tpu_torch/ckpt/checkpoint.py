@@ -130,10 +130,12 @@ def _to_cpu(tree):
 
 def _fit_rows(name: str, stored: torch.Tensor, like: torch.Tensor,
               logical_rows: Optional[Dict[str, int]]) -> torch.Tensor:
-    """``stored`` in the template's row layout: tables written with
-    another pad layout share their logical rows as a prefix, so they are
-    prefix-copied (extra pad rows zero). Fewer stored rows than the
-    template's logical rows is a vocabulary mismatch and raises."""
+    """``stored`` in the template's row layout: tables and optimizer slots
+    written with another pad layout share their logical rows as a prefix,
+    so they are prefix-copied; extra pad rows keep the template's values
+    (zero in a table, the optimizer's initial value in a slot, such as
+    Adagrad's accumulator). Fewer stored rows than the template's logical
+    rows is a vocabulary mismatch and raises."""
     if tuple(stored.shape) == tuple(like.shape):
         return stored.to(like.device, like.dtype)
     if stored.dim() != like.dim() or stored.shape[1:] != like.shape[1:]:
@@ -147,7 +149,7 @@ def _fit_rows(name: str, stored: torch.Tensor, like: torch.Tensor,
             f"the template needs {need} logical rows — a vocabulary "
             "mismatch, not padding")
     n = min(stored.shape[0], like.shape[0])
-    out = torch.zeros_like(like)
+    out = like.clone()
     out[:n] = stored[:n].to(like.device, like.dtype)
     return out
 

@@ -5,9 +5,11 @@ optionally evaluate.
 Same flags and printout as ``openkeonspark_tpu.cli.train``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 Models: transe, transh, transd and rotate (generic step) and transr (the
-relation-grouped step, CUDA kernels on the card). Options the port does not cover yet (meshes and
-coordinators, ``--sampler host``, ``--batch_number``, ``--type_constrain``,
-optimizers other than sgd, TransR off the grouped route) raise
+relation-grouped step with entity negatives only, the generic step with
+``--negative_rel > 0``; CUDA kernels on the card). Optimizers: sgd and
+the lazy adam, adagrad and adadelta. Options the port does not cover yet
+(meshes and coordinators, ``--sampler host``, ``--batch_number``,
+``--type_constrain``, ``--trace_dir``, ``--exchange_hot_rows``) raise
 ``NotPortedError``.
 
 Usage:

@@ -1,2 +1,2 @@
 """Hand-written CUDA kernels (``csrc/``, built by ``build.py``) and their
-plain PyTorch versions (``rank.py``, ``grouped.py``)."""
+plain PyTorch versions (``rank.py``, ``grouped.py``, ``scatter.py``)."""

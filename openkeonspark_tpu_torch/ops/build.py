@@ -53,6 +53,8 @@ SIGNATURES = {
     "okst_grouped_project_fwd": (_P, _P, _P, _P, _I, _I, _I, _P),
     # m3, x, g, rel_off, dx, dm, rows, de, dr, stream
     "okst_grouped_project_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # table, delta, order, off, rows, width, stream
+    "okst_scatter_add_rows_sorted": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

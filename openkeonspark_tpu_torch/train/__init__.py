@@ -1,1 +1,1 @@
-"""Training: losses, sparse SGD, the step and the epoch loop."""
+"""Training: losses, sparse optimizers, the step and the epoch loop."""

@@ -4,16 +4,19 @@ a group runner that advances many steps from one draw of random bits.
 Counterpart of ``openkeonspark_tpu/train/step.py:27-328, 366-389``.
 Gradients are taken with torch autograd with respect to the *gathered*
 slot rows, never the dense tables, and turn into merged per-table row
-updates (:func:`merged_row_updates`) for :class:`~.optim.SparseSGD`.
+updates (:func:`merged_row_updates`) for the optimizers of ``optim.py``.
 TransE, TransH, TransD and RotatE train through this generic step, as in
 the JAX package, where their steps have no Pallas kernel either.
 
-TransR takes the relation-grouped route (:func:`use_grouped_transr`): the
-batch is sorted by relation, every slot row is projected through the
-grouped kernels of ``ops/grouped.py`` (plain versions on the CPU) and the
-``transfer_matrix`` gradient comes out dense. The JAX package's TPU-only
-gates (``d_ent % 8`` and the backend test) are dropped; TransR off that
-route would need the wide-row scatter kernel B5 and is refused."""
+TransR with entity negatives only takes the relation-grouped route
+(:func:`use_grouped_transr`): the batch is sorted by relation, every slot
+row is projected through the grouped kernels of ``ops/grouped.py`` (plain
+versions on the CPU) and the ``transfer_matrix`` gradient comes out dense.
+The JAX package's TPU-only gates (``d_ent % 8`` and the backend test) are
+dropped. TransR with relation negatives, or with ``grouped_transr=False``,
+takes the generic step: it gathers one ``[d_e·d_r]`` matrix per slot row,
+and its ``transfer_matrix`` rows are updated through the wide-row scatter
+kernel B5 (``optim.scatter_add_rows``)."""
 
 from __future__ import annotations
 
@@ -239,13 +242,6 @@ def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
 def check_train_supported(cfg: Config) -> None:
     """Refuse the training options the port does not cover."""
     check_model_ported(cfg.model)
-    if cfg.model == "transr" and not use_grouped_transr(cfg):
-        raise NotPortedError(
-            "TransR training off the relation-grouped route "
-            "(grouped_transr=False or negative_rel > 0) scatters into the "
-            "wide transfer_matrix rows, which needs the wide-row scatter "
-            "kernel, not yet ported (ROADMAP.md queue B5)")
-    make_optimizer(cfg)
     refused = {"sampler='host'": cfg.sampler == "host",
                "a mesh": cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1,
                "a coordinator": bool(cfg.coordinator)

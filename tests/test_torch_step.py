@@ -23,7 +23,8 @@ from openkeonspark_tpu_torch.models import get_model
 from openkeonspark_tpu_torch.sampling import DeviceSampler, SampledBatch
 from openkeonspark_tpu_torch.train import step as tstep
 from openkeonspark_tpu_torch.train.loss import margin_ranking_loss
-from openkeonspark_tpu_torch.train.optim import DenseUpdate, make_optimizer
+from openkeonspark_tpu_torch.train.optim import (WIDE_SCATTER_MIN_WIDTH,
+                                                 DenseUpdate, make_optimizer)
 
 from oracle import dense_sgd_step
 
@@ -134,6 +135,50 @@ def test_transr_grouped_step_matches_generic_step(loss_mode):
     for k in tparams:
         np.testing.assert_allclose(pg[k].numpy(), ps[k].numpy(), atol=1e-5,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("loss_mode", ["mean_neg", "self_adv"])
+def test_transr_generic_step_matches_jax(loss_mode):
+    """TransR with relation negatives takes the generic step (gathered
+    ``[d_e·d_r]`` matrices, ``transfer_matrix`` rows scattered through B5's
+    plain version) in both packages: the same u32 bits give the same
+    batch (checked), the loss agrees to rtol 1e-5 and every post-SGD table to atol
+    1e-5."""
+    cfg = TRANSR.replace(negative_rel=1, loss_mode=loss_mode, ent_size=64,
+                         rel_size=64)
+    assert not jstep.use_grouped_transr(cfg)
+    assert not tstep.use_grouped_transr(cfg)
+    assert cfg.d_ent * cfg.d_rel >= WIDE_SCATTER_MIN_WIDTH
+    ds = random_kg(**TRANSR_KG)
+    idx = build_kg_index(ds, for_eval=False)
+    state = jstep.init_state(jax_get_model("transr"), cfg, ds.n_ent,
+                             ds.n_rel, jax.random.key(6))
+    jfn = jstep.build_train_step(jax_get_model("transr"), cfg,
+                                 JaxSampler.build(ds, idx), 64)
+    tfn = tstep.build_train_step(get_model("transr"), cfg, 64)
+    assert tfn.bits_shape == tuple(jfn.bits_shape)
+    tparams = params_from_numpy(
+        {k: np.asarray(v) for k, v in state.params.items()},
+        get_model("transr"), cfg, ds.n_ent, ds.n_rel, CPU)
+    bits = np.random.default_rng(8).integers(0, 1 << 32, size=tfn.bits_shape,
+                                             dtype=np.uint64)
+    jsampler, tsampler = JaxSampler.build(ds, idx), DeviceSampler.build(
+        ds, idx, CPU)
+    jb = jsampler.sample(jax.random.key(0), 64, 2, 1, cfg.bern,
+                         bits=jnp.asarray(bits.astype(np.uint32)))
+    tb = tsampler.sample(64, 2, 1, cfg.bern,
+                         bits=torch.from_numpy(bits.astype(np.int64)))
+    for k in ("h", "t", "r", "neg_h", "neg_t", "neg_rel"):
+        np.testing.assert_array_equal(getattr(tb, k).numpy(),
+                                      np.asarray(getattr(jb, k)), err_msg=k)
+    want, loss_j = jfn(state, jsampler, jax.random.key(0),
+                       bits=jnp.asarray(bits.astype(np.uint32)))
+    got, loss_t = tfn(tstep.TrainState(tparams, {}, 0), tsampler,
+                      torch.from_numpy(bits.astype(np.int64)))
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    for k, v in want.params.items():
+        np.testing.assert_allclose(got.params[k].numpy(), np.asarray(v),
+                                   atol=1e-5, err_msg=k)
 
 
 TRANSE = Config(model="transe", hidden_size=8, margin=2.0, alpha=0.05,

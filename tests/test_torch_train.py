@@ -119,15 +119,21 @@ def test_restore_across_padding_layouts(tmp_path):
         mgr.restore(tmpl)
 
 
-@pytest.mark.parametrize("model", ["transr", "transe"])
-def test_exact_resume_data_order(tmp_path, model):
+@pytest.mark.parametrize("model,opt,negative_rel", [
+    pytest.param("transr", "sgd", 0, id="transr"),
+    pytest.param("transe", "sgd", 0, id="transe"),
+    pytest.param("transr", "adagrad", 0, id="transr-adagrad"),
+    pytest.param("transe", "adagrad", 0, id="transe-adagrad"),
+    pytest.param("transr", "adagrad", 1, id="transr-generic-adagrad")])
+def test_exact_resume_data_order(tmp_path, model, opt, negative_rel):
     """Two epochs straight equal one epoch, a restore from its checkpoint
-    and one more epoch, bit for bit: each group's random bits derive from
-    the restored global step."""
+    and one more epoch, bit for bit, tables and optimizer state: each
+    group's random bits derive from the restored global step."""
     ds = random_kg(n_ent=80, n_rel=5, n_triples=800, n_valid=30, n_test=30,
                    seed=3)
     cfg = transr_cfg(model=model, hidden_size=8, nbatches=7,
-                     steps_per_scan=3, train_times=2)
+                     steps_per_scan=3, train_times=2, opt_method=opt,
+                     negative_rel=negative_rel)
     full = train(cfg, ds, CPU, **QUIET)
     ck = str(tmp_path / "ck")
     train(cfg.replace(train_times=1), ds, CPU, checkpoint_dir=ck, **QUIET)
@@ -140,6 +146,42 @@ def test_exact_resume_data_order(tmp_path, model):
     assert resumed.state.step == full.state.step == 14
     for k, v in full.state.params.items():
         assert torch.equal(resumed.state.params[k], v), k
+    assert set(resumed.state.opt_state) == set(full.state.opt_state)
+    for s, tables in full.state.opt_state.items():
+        for k, v in tables.items():
+            assert torch.equal(resumed.state.opt_state[s][k], v), (s, k)
+
+
+@pytest.mark.parametrize("opt", ["adam", "adagrad", "adadelta"])
+def test_optimizer_state_restores_across_padding_layouts(tmp_path, opt):
+    """The lazy optimizers' slots restore by their logical rows across pad
+    layouts, exactly; extra pad rows keep the template's initial value."""
+    cfg = transr_cfg(opt_method=opt)
+    model = get_model("transr")
+    logical = {n: s.rows for n, s in model.tables(cfg, 61, 5).items()}
+    g = torch.Generator().manual_seed(3)
+    for pad_from, pad_to in ((8, 1), (1, 8)):
+        src = init_state(model, cfg, 61, 5, torch.Generator().manual_seed(1),
+                         CPU, pad_to_multiple=pad_from)
+        for tables in src.opt_state.values():
+            for k, v in tables.items():
+                v[:logical[k]] = torch.rand(logical[k], v.shape[1],
+                                            generator=g)
+        mgr = CheckpointManager(str(tmp_path / f"ck{pad_from}"))
+        mgr.save(4, src)
+        tmpl = init_state(model, cfg, 61, 5,
+                          torch.Generator().manual_seed(2), CPU,
+                          pad_to_multiple=pad_to)
+        back, _ = mgr.restore(tmpl, step=4, logical_rows=logical)
+        assert set(back.opt_state) == set(tmpl.opt_state) == set(
+            {"adam": ("m", "v"), "adagrad": ("accum",),
+             "adadelta": ("accum", "accum_update")}[opt])
+        for s, tables in back.opt_state.items():
+            for k, v in tables.items():
+                n = logical[k]
+                assert v.shape == tmpl.opt_state[s][k].shape
+                assert torch.equal(v[:n], src.opt_state[s][k][:n]), (s, k)
+                assert torch.equal(v[n:], tmpl.opt_state[s][k][n:]), (s, k)
 
 
 @pytest.fixture(scope="module")
@@ -158,25 +200,11 @@ def _argv(root, out, *extra):
             "--negative_ent", "2", "--log_every", "100", *extra]
 
 
-def test_cli_train_end_to_end_matches_jax_ranks(planted_dir, capsys):
-    """``cli.train --device cpu`` trains, checkpoints and exports
-    ``embedding.vec.json``; the JAX package ranks the test triples on the
-    exported tables as the port's closing link prediction did (but for
-    near-ties); a second call resumes and trains the remaining epoch."""
-    root, ds = planted_dir
-    out = root / "out"
-    summary = train_cli.main(_argv(
-        root, out, "--train_times", "4", "--valid_every", "2",
-        "--test_link_prediction", "--test_triple_classification"))
-    printed = capsys.readouterr().out
-    assert "link-pred (transr grouped)" in printed
-    assert "triple classification: {'accuracy':" in printed
-    assert summary["steps"] == 40 and latest_step(str(out)) == 40
-    assert summary["epoch_loss"][-1] < summary["epoch_loss"][0]
-    assert 0 < summary["link_prediction"]["filtered_mrr"] <= 1
-
+def _assert_ranks_match_jax(out, ds, summary, cfg):
+    """The export in ``out`` has the model's shapes, and the JAX package
+    ranks the test triples on it as the port's closing link prediction
+    did, but for near-ties."""
     tables = import_parameters(str(out / "embedding.vec.json"))
-    cfg = transr_cfg()
     specs = get_model("transr").tables(cfg, ds.n_ent, ds.n_rel)
     assert {k: v.shape for k, v in tables.items()} == {
         k: (s.rows, s.dim) for k, s in specs.items()}
@@ -198,13 +226,56 @@ def test_cli_train_end_to_end_matches_jax_ranks(planted_dir, capsys):
     assert got.filt_avg.mrr == pytest.approx(
         summary["link_prediction"]["filtered_mrr"])
 
+
+def test_cli_train_end_to_end_matches_jax_ranks(planted_dir, capsys):
+    """``cli.train --device cpu`` trains, checkpoints and exports
+    ``embedding.vec.json``; the JAX package ranks the test triples on the
+    exported tables as the port's closing link prediction did (but for
+    near-ties); a second call resumes and trains the remaining epoch."""
+    root, ds = planted_dir
+    out = root / "out"
+    summary = train_cli.main(_argv(
+        root, out, "--train_times", "4", "--valid_every", "2",
+        "--test_link_prediction", "--test_triple_classification"))
+    printed = capsys.readouterr().out
+    assert "link-pred (transr grouped)" in printed
+    assert "triple classification: {'accuracy':" in printed
+    assert summary["steps"] == 40 and latest_step(str(out)) == 40
+    assert summary["epoch_loss"][-1] < summary["epoch_loss"][0]
+    assert 0 < summary["link_prediction"]["filtered_mrr"] <= 1
+
+    _assert_ranks_match_jax(out, ds, summary, transr_cfg())
+
     again = train_cli.main(_argv(root, out, "--train_times", "5"))
     assert "resumed from" in capsys.readouterr().out
     assert again["steps"] == 50 and len(again["epoch_loss"]) == 1
 
 
+@pytest.mark.parametrize("opt", ["sgd", "adagrad"])
+def test_cli_train_transr_relation_negatives(planted_dir, tmp_path, capsys,
+                                             opt):
+    """``cli.train --model transr --negative_rel 1`` takes the generic
+    step, whose 4,096-wide ``transfer_matrix`` rows are updated through
+    B5 (its plain version here; with Adagrad the gradient sum G is): the
+    loss falls, the export ranks as in the JAX package but for
+    near-ties."""
+    root, ds = planted_dir
+    out = tmp_path / "out"
+    summary = train_cli.main(_argv(
+        root, out, "--train_times", "3", "--negative_rel", "1",
+        "--opt_method", opt, "--ent_size", "64", "--rel_size", "64",
+        "--test_link_prediction"))
+    assert "link-pred (transr grouped)" in capsys.readouterr().out
+    assert summary["steps"] == 30 and latest_step(str(out)) == 30
+    assert np.isfinite(summary["epoch_loss"]).all()
+    assert summary["epoch_loss"][-1] < summary["epoch_loss"][0]
+    _assert_ranks_match_jax(out, ds, summary,
+                            transr_cfg(ent_size=64, rel_size=64))
+
+
 @pytest.mark.parametrize("extra", [
-    ["--negative_rel", "1"], ["--opt_method", "adam"],
+    ["--model", "complex"],
+    ["--exchange_hot_rows", "4", "--exchange_capacity", "stats"],
     ["--sampler", "host"], ["--mesh_model", "2"], ["--batch_number", "1"],
     ["--model", "distmult"], ["--type_constrain"]])
 def test_cli_train_refuses_unported_options(planted_dir, tmp_path, extra):
