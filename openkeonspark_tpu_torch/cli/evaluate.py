@@ -25,9 +25,9 @@ import sys
 
 import torch
 
-from openkeonspark_tpu.cli.args import build_parser, config_from_args
-from openkeonspark_tpu.data.dataset import load_dataset
-from openkeonspark_tpu.data.index import build_kg_index
+from openkeonspark_tpu_torch.cli.args import build_parser, config_from_args
+from openkeonspark_tpu_torch.data.dataset import load_dataset
+from openkeonspark_tpu_torch.data.index import build_kg_index
 from openkeonspark_tpu_torch.ckpt import params_from_numpy, read_parameters
 from openkeonspark_tpu_torch.models.base import get_model
 from openkeonspark_tpu_torch.runtime import (check_predict_supported,

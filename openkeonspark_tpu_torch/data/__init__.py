@@ -1,11 +1,10 @@
-"""Dataset IO, group indexes and synthetic KGs: the reference package's
-numpy-only ``openkeonspark_tpu.data`` modules, reused by import (they load
-no jax) and re-exported here so the port's callers name one package."""
+"""Dataset IO, group indexes and synthetic KGs: the port's own copies of
+the reference package's numpy modules (``dataset``, ``index``, ``synth``),
+re-exported here so the port's callers name one package."""
 
-from openkeonspark_tpu.data.dataset import (H, R, T, Dataset,  # noqa: F401
-                                            load_dataset, save_dataset)
-from openkeonspark_tpu.data.index import (GroupIndex, KGIndex,  # noqa: F401
-                                          build_kg_index)
-from openkeonspark_tpu.data.synth import (fb15k237_like,  # noqa: F401
-                                          fb15k_like, planted_kg, random_kg,
-                                          wn18rr_like)
+from openkeonspark_tpu_torch.data.dataset import (  # noqa: F401
+    H, R, T, Dataset, load_dataset, save_dataset)
+from openkeonspark_tpu_torch.data.index import (  # noqa: F401
+    GroupIndex, KGIndex, build_group_index, build_kg_index)
+from openkeonspark_tpu_torch.data.synth import (  # noqa: F401
+    fb15k237_like, fb15k_like, planted_kg, random_kg, wn18rr_like)

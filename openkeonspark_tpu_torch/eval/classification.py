@@ -15,9 +15,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from openkeonspark_tpu.config import Config
-from openkeonspark_tpu.data.dataset import Dataset, H, R, T
-from openkeonspark_tpu.data.index import KGIndex
+from openkeonspark_tpu_torch.config import Config
+from openkeonspark_tpu_torch.data.dataset import Dataset, H, R, T
+from openkeonspark_tpu_torch.data.index import KGIndex
 from openkeonspark_tpu_torch.models.base import get_model
 
 

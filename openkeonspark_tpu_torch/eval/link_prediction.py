@@ -29,9 +29,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from openkeonspark_tpu.config import Config
-from openkeonspark_tpu.data.dataset import Dataset, H, R, T
-from openkeonspark_tpu.data.index import KGIndex
+from openkeonspark_tpu_torch.config import Config
+from openkeonspark_tpu_torch.data.dataset import Dataset, H, R, T
+from openkeonspark_tpu_torch.data.index import KGIndex
 from openkeonspark_tpu_torch.models.transh import unit
 from openkeonspark_tpu_torch.ops import rank as rank_ops
 from openkeonspark_tpu_torch.runtime import (check_supported, eval_chunk_size,

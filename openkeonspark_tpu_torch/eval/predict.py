@@ -12,7 +12,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.eval.classification import (Thresholds,
                                                          score_triples)
 from openkeonspark_tpu_torch.eval.scoring import candidate_scores

@@ -15,7 +15,7 @@ from typing import Dict
 
 import torch
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import pnorm
 from openkeonspark_tpu_torch.models.rotate import modulus_sum
 from openkeonspark_tpu_torch.ops import rank as rank_ops

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.runtime import check_model_ported
 
 Params = Dict[str, torch.Tensor]

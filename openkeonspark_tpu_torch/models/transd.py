@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import (KGEModel, Slots, TableSpec,
                                                  pnorm, register)
 

@@ -26,7 +26,7 @@ LIB_NAME = "libokst_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C signature of each launcher: every one returns its cudaError_t as int
 SIGNATURES = {
     # q, table, gold, gold_ids, counts, C, D, n_ent, sign, p, stream
@@ -49,6 +49,8 @@ SIGNATURES = {
     "okst_count_better_rotate": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, table, ids, out, C, K, d, rows, sign, stream
     "okst_rotate_score_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # lo, hi, bad, first, stream
+    "okst_sqrt_rn_normal_mismatches": (_U, _U, _P, _P, _P),
     # m3, x, rel_off, y, rows, de, dr, stream
     "okst_grouped_project_fwd": (_P, _P, _P, _P, _I, _I, _I, _P),
     # m3, x, g, rel_off, dx, dm, rows, de, dr, stream

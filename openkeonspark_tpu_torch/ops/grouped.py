@@ -115,8 +115,10 @@ def grouped_project_fwd(m3: torch.Tensor, x: torch.Tensor,
 def grouped_project_bwd(m3: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
                         rel_off: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backward kernels: (dx ``[N, d_e]``, dense dM ``[rows, d_e, d_r]``),
-    every dM element written once, zero for an absent relation."""
+    """Backward kernel, one launch for both products: (dx ``[N, d_e]``,
+    dense dM ``[rows, d_e, d_r]``), every dM element written once, zero for
+    an absent relation, each run summed in a fixed order (two launches give
+    the same bits). Takes ``d_r`` up to 1,024."""
     rows, de, dr, n = _check_common(m3, x, rel_off)
     _check("g", g, torch.float32, (n, dr), m3.device)
     from openkeonspark_tpu_torch.ops.build import check_launch, library

@@ -10,7 +10,7 @@ import contextlib
 
 import torch
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu_torch.config import Config
 
 # test triples ranked per query chunk. The reference's Config.eval_chunk_size
 # is not called: it imports jax and caps chunks for the TPU's VMEM.

@@ -26,8 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from openkeonspark_tpu.data.dataset import Dataset
-from openkeonspark_tpu.data.index import KGIndex
+from openkeonspark_tpu_torch.data.dataset import Dataset
+from openkeonspark_tpu_torch.data.index import KGIndex
 
 # column order of DeviceSampler.trip
 _H, _T, _R, _HR_OFF, _HR_CNT, _TR_OFF, _TR_CNT, _HT_OFF, _HT_CNT = range(9)

@@ -24,9 +24,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from openkeonspark_tpu.config import Config
-from openkeonspark_tpu.data.dataset import Dataset
-from openkeonspark_tpu.data.index import KGIndex, build_kg_index
+from openkeonspark_tpu_torch.config import Config
+from openkeonspark_tpu_torch.data.dataset import Dataset
+from openkeonspark_tpu_torch.data.index import KGIndex, build_kg_index
 from openkeonspark_tpu_torch.models.base import get_model
 from openkeonspark_tpu_torch.sampling.device import DeviceSampler
 from openkeonspark_tpu_torch.train.step import (TrainState,

@@ -31,7 +31,7 @@ from typing import Dict, List, NamedTuple, Tuple, Union
 
 import torch
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.ops.scatter import (scatter_add_rows_sorted,
                                                  scatter_add_rows_sorted_ref)
 

@@ -25,7 +25,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import (Gather, KGEModel, Params,
                                                  init_tables, pnorm)
 from openkeonspark_tpu_torch.ops.grouped import grouped_project, run_offsets

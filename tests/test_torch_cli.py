@@ -124,27 +124,37 @@ def test_cli_transr_refuses_predict(exported_transr, query):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter that imports every module of the port loads no
-    jax (the JAX package's numpy-only modules it reuses included)."""
+    """In a fresh interpreter whose import system refuses ``jax``,
+    ``jaxlib`` and the JAX package ``openkeonspark_tpu`` (the exact
+    top-level name: ``openkeonspark_tpu_torch`` stays importable), every
+    module of the port and ``chip_smoke`` (its ``main`` is guarded) load."""
     code = (
-        "import sys\n"
-        "before = set(sys.modules)\n"
-        "import openkeonspark_tpu_torch.cli.evaluate, "
-        "openkeonspark_tpu_torch.cli.train, "
-        "openkeonspark_tpu_torch.eval, openkeonspark_tpu_torch.ops.rank, "
-        "openkeonspark_tpu_torch.ops.grouped, "
-        "openkeonspark_tpu_torch.ops.build, openkeonspark_tpu_torch.data, "
-        "openkeonspark_tpu_torch.config, openkeonspark_tpu_torch.ckpt, "
-        "openkeonspark_tpu_torch.models.transr, "
-        "openkeonspark_tpu_torch.sampling.device, "
-        "openkeonspark_tpu_torch.train.loss, "
-        "openkeonspark_tpu_torch.train.optim, "
-        "openkeonspark_tpu_torch.train.step, "
-        "openkeonspark_tpu_torch.train.loop\n"
-        "added = set(sys.modules) - before\n"
-        "bad = sorted(m for m in added if m.split('.')[0] in "
-        "('jax', 'jaxlib'))\n"
-        "assert 'jax' not in sys.modules and not bad, bad\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'openkeonspark_tpu')\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'blocked import of {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "import openkeonspark_tpu_torch as pkg\n"
+        "names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(\n"
+        "    pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke',\n"
+        "                                              'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "for name in BLOCKED:\n"
+        "    try:\n"
+        "        importlib.import_module(name)\n"
+        "    except ImportError:\n"
+        "        pass\n"
+        "    else:\n"
+        "        raise AssertionError(f'{name} was not blocked')\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "assert len(names) > 30, names\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

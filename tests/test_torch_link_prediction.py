@@ -27,7 +27,7 @@ from openkeonspark_tpu_torch.eval import (link_prediction,
 from openkeonspark_tpu_torch.eval.link_prediction import guard_finite_params
 from openkeonspark_tpu_torch.models import TransE
 
-from torch_parity import transe_near_tie_counts
+from torch_parity import port_config, transe_near_tie_counts
 
 CPU = torch.device("cpu")
 
@@ -45,9 +45,10 @@ def _setup(kg, p):
                  eval_block=32)
     st = init_state(jax_get_model("transe"), cfg, ds.n_ent, ds.n_rel,
                     jax.random.key(8))
+    tcfg = port_config(cfg)
     tp = params_from_numpy({k: np.asarray(v) for k, v in st.params.items()},
-                           TransE, cfg, ds.n_ent, ds.n_rel, CPU)
-    return ds, idx, cfg, st.params, tp
+                           TransE, tcfg, ds.n_ent, ds.n_rel, CPU)
+    return ds, idx, cfg, st.params, tp, tcfg
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +56,7 @@ def jax_results(kg):
     """JAX ranks per p, generic XLA path and Pallas interpret path."""
     out = {}
     for p in (1, 2):
-        ds, idx, cfg, jp, _ = _setup(kg, p)
+        ds, idx, cfg, jp, _, _ = _setup(kg, p)
         generic = jax_link_prediction(jp, cfg, ds, idx)
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("OKST_PALLAS_INTERPRET", "1")
@@ -67,7 +68,7 @@ def jax_results(kg):
 @pytest.mark.parametrize("path", ["generic", "pallas"])
 @pytest.mark.parametrize("p", [1, 2])
 def test_ranks_match_jax(kg, jax_results, p, path):
-    ds, idx, cfg, _, tp = _setup(kg, p)
+    ds, idx, _, _, tp, cfg = _setup(kg, p)
     got = link_prediction(tp, cfg, ds, idx)
     want = jax_results[p][path]
     ties = transe_near_tie_counts(tp["ent_embeddings"][:ds.n_ent].numpy(),
@@ -83,7 +84,7 @@ def test_ranks_match_jax(kg, jax_results, p, path):
 
 
 def test_filtered_ranks_never_worse_than_raw(kg):
-    ds, idx, cfg, _, tp = _setup(kg, 1)
+    ds, idx, _, _, tp, cfg = _setup(kg, 1)
     res = link_prediction(tp, cfg, ds, idx)
     assert (res.ranks["filt_head"] <= res.ranks["raw_head"]).all()
     assert (res.ranks["filt_tail"] <= res.ranks["raw_tail"]).all()
@@ -94,7 +95,7 @@ def test_filtered_ranks_never_worse_than_raw(kg):
 def test_ranks_do_not_depend_on_chunking(kg):
     """Ragged last chunk, one-query chunks and tiny dispatch groups give
     the same ranks as the default chunking."""
-    ds, idx, cfg, _, tp = _setup(kg, 2)
+    ds, idx, _, _, tp, cfg = _setup(kg, 2)
     want = link_prediction(tp, cfg, ds, idx).ranks
     for kw in ({"eval_chunk": 7}, {"eval_chunk": 1},
                {"eval_chunk": 16, "eval_group_elems": 64}):
@@ -105,8 +106,8 @@ def test_ranks_do_not_depend_on_chunking(kg):
 
 @pytest.mark.parametrize("p", [1, 2])
 def test_triple_classification_matches_jax(kg, p):
-    ds, idx, cfg, jp, tp = _setup(kg, p)
-    got = triple_classification(tp, cfg, ds, idx)
+    ds, idx, cfg, jp, tp, tcfg = _setup(kg, p)
+    got = triple_classification(tp, tcfg, ds, idx)
     want = jax_tc(jp, cfg, ds, idx)
     assert got["accuracy"] == want["accuracy"]
     assert got["valid_accuracy"] == want["valid_accuracy"]
@@ -118,8 +119,8 @@ def test_thresholds_match_jax(kg):
     from openkeonspark_tpu.eval.classification import \
         fit_thresholds as jax_fit
     from openkeonspark_tpu_torch.eval.classification import fit_thresholds
-    ds, idx, cfg, jp, tp = _setup(kg, 1)
-    thr, acc = fit_thresholds(tp, cfg, ds, idx)
+    ds, idx, cfg, jp, tp, tcfg = _setup(kg, 1)
+    thr, acc = fit_thresholds(tp, tcfg, ds, idx)
     jthr, jacc = jax_fit(jp, cfg, ds, idx)
     assert acc == jacc
     np.testing.assert_array_equal(thr.has_rel, jthr.has_rel)
@@ -129,15 +130,15 @@ def test_thresholds_match_jax(kg):
 
 @pytest.mark.parametrize("p", [1, 2])
 def test_predict_matches_jax(kg, p):
-    ds, idx, cfg, jp, tp = _setup(kg, p)
+    ds, idx, cfg, jp, tp, tcfg = _setup(kg, p)
     for h, r in ((0, 0), (17, 3), (90, 6)):
-        ids, scores = predict_tail_entity(tp, cfg, ds.n_ent, ds.n_rel, h, r,
+        ids, scores = predict_tail_entity(tp, tcfg, ds.n_ent, ds.n_rel, h, r,
                                           k=10)
         jids, jscores = jax_predict_tail(jp, cfg, ds.n_ent, ds.n_rel, h, r,
                                          k=10)
         np.testing.assert_array_equal(ids, jids)
         np.testing.assert_allclose(scores, jscores, rtol=1e-5)
-        ids, _ = predict_head_entity(tp, cfg, ds.n_ent, ds.n_rel, h, r, k=10)
+        ids, _ = predict_head_entity(tp, tcfg, ds.n_ent, ds.n_rel, h, r, k=10)
         jids, _ = jax_predict_head(jp, cfg, ds.n_ent, ds.n_rel, h, r, k=10)
         np.testing.assert_array_equal(ids, jids)
         assert (ids < ds.n_ent).all()
@@ -162,7 +163,7 @@ def test_known_matrix_matches_jax(kg):
 
 
 def test_guard_finite_params_refuses_nan(kg):
-    ds, idx, cfg, _, tp = _setup(kg, 1)
+    ds, idx, _, _, tp, cfg = _setup(kg, 1)
     guard_finite_params(tp)
     bad = dict(tp, rel_embeddings=tp["rel_embeddings"].clone())
     bad["rel_embeddings"][2, 3] = float("nan")

@@ -32,7 +32,8 @@ from openkeonspark_tpu_torch.eval.link_prediction import use_grouped_route
 from openkeonspark_tpu_torch.models import get_model
 from openkeonspark_tpu_torch.ops import rank
 
-from torch_parity import MAX_NEAR_TIE_SHARE, model_near_tie_counts
+from torch_parity import (MAX_NEAR_TIE_SHARE, model_near_tie_counts,
+                          port_config)
 
 CPU = torch.device("cpu")
 # (model, p) pairs: RotatE has no norm to choose
@@ -59,9 +60,10 @@ def _setup(kg, model, p):
     st = init_state(jax_get_model(model), cfg, ds.n_ent, ds.n_rel,
                     jax.random.key(4))
     jp = {k: np.asarray(v) for k, v in st.params.items()}
-    tp = params_from_numpy(jp, get_model(model), cfg, ds.n_ent, ds.n_rel,
+    tcfg = port_config(cfg)
+    tp = params_from_numpy(jp, get_model(model), tcfg, ds.n_ent, ds.n_rel,
                            CPU)
-    return ds, idx, cfg, st.params, tp
+    return ds, idx, cfg, st.params, tp, tcfg
 
 
 def _jax_ranks(kg, model, p, path):
@@ -69,7 +71,7 @@ def _jax_ranks(kg, model, p, path):
     route in interpret mode: the fused count for TransD and RotatE, the
     grouped projection + TransE count for TransH) or, for TransH,
     ``transh_kernel`` (its TransH count, the A/B switch)."""
-    ds, idx, cfg, jp, _ = _setup(kg, model, p)
+    ds, idx, cfg, jp, _, _ = _setup(kg, model, p)
     with pytest.MonkeyPatch.context() as mp:
         if path != "generic":
             mp.setenv("OKST_PALLAS_INTERPRET", "1")
@@ -113,7 +115,7 @@ def test_ranks_match_jax(kg, jax_results, model, p, path, monkeypatch):
     """The port's default route (B2, B3 per chunk; TransH relation by
     relation through B1) against both JAX paths."""
     monkeypatch.delenv(TRANSH_KERNEL, raising=False)
-    ds, idx, cfg, _, tp = _setup(kg, model, p)
+    ds, idx, _, _, tp, cfg = _setup(kg, model, p)
     assert use_grouped_route(cfg) == (model == "transh")
     got = link_prediction(tp, cfg, ds, idx)
     _assert_ranks_match(got, jax_results[model, p, path],
@@ -126,7 +128,7 @@ def test_transh_kernel_route_matches_jax(kg, jax_results, p, path,
                                          monkeypatch):
     """OKST_EVAL_TRANSH_KERNEL=1 sends TransH chunk by chunk through B6's
     count (its plain version here) and nothing else does."""
-    ds, idx, cfg, _, tp = _setup(kg, "transh", p)
+    ds, idx, _, _, tp, cfg = _setup(kg, "transh", p)
     monkeypatch.setenv(TRANSH_KERNEL, "1")
     assert not use_grouped_route(cfg)
     lines = []
@@ -143,7 +145,7 @@ def test_ranks_do_not_depend_on_chunking(kg, model, p, monkeypatch):
     """One-query and ragged chunks give the default chunking's ranks, and
     filtered ranks never exceed raw ones."""
     monkeypatch.delenv(TRANSH_KERNEL, raising=False)
-    ds, idx, cfg, _, tp = _setup(kg, model, p)
+    ds, idx, _, _, tp, cfg = _setup(kg, model, p)
     want = link_prediction(tp, cfg, ds, idx).ranks
     for d in ("head", "tail"):
         assert (want[f"filt_{d}"] <= want[f"raw_{d}"]).all()
@@ -160,7 +162,7 @@ def test_plain_flag_takes_the_plain_versions(kg, monkeypatch):
     kernel launch either way."""
     monkeypatch.setenv(TRANSH_KERNEL, "1")
     for model, p in CASES:
-        ds, idx, cfg, _, tp = _setup(kg, model, p)
+        ds, idx, _, _, tp, cfg = _setup(kg, model, p)
         rank.reset_launch_counts()
         a = link_prediction(tp, cfg, ds, idx)
         b = link_prediction(tp, cfg, ds, idx, plain=True)
@@ -171,8 +173,8 @@ def test_plain_flag_takes_the_plain_versions(kg, monkeypatch):
 
 @pytest.mark.parametrize("model,p", CASES)
 def test_triple_classification_matches_jax(kg, model, p):
-    ds, idx, cfg, jp, tp = _setup(kg, model, p)
-    got = triple_classification(tp, cfg, ds, idx)
+    ds, idx, cfg, jp, tp, tcfg = _setup(kg, model, p)
+    got = triple_classification(tp, tcfg, ds, idx)
     want = jax_tc(jp, cfg, ds, idx)
     assert got["accuracy"] == want["accuracy"]
     assert got["valid_accuracy"] == want["valid_accuracy"]
@@ -182,21 +184,21 @@ def test_triple_classification_matches_jax(kg, model, p):
 
 @pytest.mark.parametrize("model,p", CASES)
 def test_predict_matches_jax(kg, model, p):
-    ds, idx, cfg, jp, tp = _setup(kg, model, p)
+    ds, idx, cfg, jp, tp, tcfg = _setup(kg, model, p)
     for a, r in ((0, 0), (17, 3), (96, 5)):
-        ids, scores = predict_tail_entity(tp, cfg, ds.n_ent, ds.n_rel, a, r,
+        ids, scores = predict_tail_entity(tp, tcfg, ds.n_ent, ds.n_rel, a, r,
                                           k=10)
         jids, jscores = jax_predict_tail(jp, cfg, ds.n_ent, ds.n_rel, a, r,
                                          k=10)
         np.testing.assert_array_equal(ids, jids)
         np.testing.assert_allclose(scores, jscores, rtol=1e-5)
-        ids, scores = predict_head_entity(tp, cfg, ds.n_ent, ds.n_rel, a, r,
+        ids, scores = predict_head_entity(tp, tcfg, ds.n_ent, ds.n_rel, a, r,
                                           k=10)
         jids, jscores = jax_predict_head(jp, cfg, ds.n_ent, ds.n_rel, a, r,
                                          k=10)
         np.testing.assert_array_equal(ids, jids)
         np.testing.assert_allclose(scores, jscores, rtol=1e-5)
-        ids, scores = predict_relation(tp, cfg, ds.n_ent, ds.n_rel, a, 3,
+        ids, scores = predict_relation(tp, tcfg, ds.n_ent, ds.n_rel, a, 3,
                                        k=4)
         jids, jscores = jax_predict_rel(jp, cfg, ds.n_ent, ds.n_rel, a, 3,
                                         k=4)
@@ -209,7 +211,7 @@ def test_cli_prints_jax_table(kg, tmp_path, model, p, capsys, monkeypatch):
     """``cli.evaluate --device cpu`` on a JAX export prints the JAX
     package's link-prediction table and answers the top-k queries."""
     monkeypatch.delenv(TRANSH_KERNEL, raising=False)
-    ds, idx, cfg, jp, _ = _setup(kg, model, p)
+    ds, idx, cfg, jp, _, _ = _setup(kg, model, p)
     save_dataset(ds, str(tmp_path / "kg"))
     jax_export(jp, jax_get_model(model), cfg, ds.n_ent, ds.n_rel,
                str(tmp_path / "ckpt" / "embedding.vec.json"))

@@ -12,7 +12,7 @@ import torch
 
 from openkeonspark_tpu.ckpt import export_parameters as jax_export
 from openkeonspark_tpu.ckpt import import_parameters as jax_import
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu.config import Config as JaxConfig
 from openkeonspark_tpu.models import get_model as jax_get_model
 from openkeonspark_tpu.train.step import init_state
 from openkeonspark_tpu_torch.ckpt import (export_parameters,
@@ -21,15 +21,19 @@ from openkeonspark_tpu_torch.ckpt import (export_parameters,
                                           save_params)
 from openkeonspark_tpu_torch.models import (TransE, get_model, init_tables,
                                             padded_rows)
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.runtime import NotPortedError
+
+from torch_parity import config_as
 
 CPU = torch.device("cpu")
 N_ENT, N_REL = 53, 6
 
 
 def _jax_params(cfg, pad_to_multiple=1, seed=4):
-    st = init_state(jax_get_model("transe"), cfg, N_ENT, N_REL,
-                    jax.random.key(seed), pad_to_multiple=pad_to_multiple)
+    st = init_state(jax_get_model("transe"), config_as(JaxConfig, cfg),
+                    N_ENT, N_REL, jax.random.key(seed),
+                    pad_to_multiple=pad_to_multiple)
     return {k: np.asarray(v) for k, v in st.params.items()}
 
 
@@ -43,7 +47,7 @@ def test_transe_score_triples_matches_jax(p):
     r = rng.integers(0, N_REL, 200)
     want = jax_get_model("transe").score_triples(
         {k: jnp.asarray(v) for k, v in jp.items()}, jnp.asarray(h),
-        jnp.asarray(t), jnp.asarray(r), cfg)
+        jnp.asarray(t), jnp.asarray(r), config_as(JaxConfig, cfg))
     model = TransE(cfg, N_ENT, N_REL, tp)
     got = model.score_triples(torch.from_numpy(h), torch.from_numpy(t),
                               torch.from_numpy(r))
@@ -111,7 +115,8 @@ def test_exports_interchange_with_jax(tmp_path, fmt):
     jax_path = str(tmp_path / "jax" / name)
     export_parameters(tp, TransE, cfg, N_ENT, N_REL, port_path, fmt=fmt)
     jax_export({k: jnp.asarray(v) for k, v in jp.items()},
-               jax_get_model("transe"), cfg, N_ENT, N_REL, jax_path, fmt=fmt)
+               jax_get_model("transe"), config_as(JaxConfig, cfg), N_ENT,
+               N_REL, jax_path, fmt=fmt)
     via_jax, via_port = jax_import(port_path), import_parameters(jax_path)
     for k, spec in TransE.tables(cfg, N_ENT, N_REL).items():
         np.testing.assert_array_equal(via_jax[k], jp[k][:spec.rows])

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from openkeonspark_tpu.ckpt import export_parameters as jax_export
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu.config import Config as JaxConfig
 from openkeonspark_tpu.models import get_model as jax_get_model
 from openkeonspark_tpu.train.step import init_state
 from openkeonspark_tpu_torch.ckpt import (export_parameters,
@@ -17,7 +17,10 @@ from openkeonspark_tpu_torch.ckpt import (export_parameters,
                                           params_from_numpy)
 from openkeonspark_tpu_torch.models import (RotatE, TransD, TransH,
                                             get_model, init_tables)
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import pnorm
+
+from torch_parity import config_as
 
 CPU = torch.device("cpu")
 N_ENT, N_REL = 53, 6
@@ -25,8 +28,9 @@ MODELS = {"transh": TransH, "transd": TransD, "rotate": RotatE}
 
 
 def _jax_params(name, cfg, pad_to_multiple=1, seed=4):
-    st = init_state(jax_get_model(name), cfg, N_ENT, N_REL,
-                    jax.random.key(seed), pad_to_multiple=pad_to_multiple)
+    st = init_state(jax_get_model(name), config_as(JaxConfig, cfg), N_ENT,
+                    N_REL, jax.random.key(seed),
+                    pad_to_multiple=pad_to_multiple)
     return {k: np.asarray(v) for k, v in st.params.items()}
 
 
@@ -34,7 +38,8 @@ def test_registry_and_tables():
     cfg = Config(hidden_size=10)
     for name, cls in MODELS.items():
         assert get_model(name) is cls
-        want = jax_get_model(name).tables(cfg, N_ENT, N_REL)
+        want = jax_get_model(name).tables(config_as(JaxConfig, cfg), N_ENT,
+                                          N_REL)
         got = cls.tables(cfg, N_ENT, N_REL)
         assert {k: (s.rows, s.dim, s.kind) for k, s in got.items()} == {
             k: (s.rows, s.dim, s.kind) for k, s in want.items()}, name
@@ -57,7 +62,7 @@ def test_score_triples_matches_jax(name, p):
     r = rng.integers(0, N_REL, 200)
     want = jax_get_model(name).score_triples(
         {k: jnp.asarray(v) for k, v in jp.items()}, jnp.asarray(h),
-        jnp.asarray(t), jnp.asarray(r), cfg)
+        jnp.asarray(t), jnp.asarray(r), config_as(JaxConfig, cfg))
     got = MODELS[name](cfg, N_ENT, N_REL, tp).score_triples(
         torch.from_numpy(h), torch.from_numpy(t), torch.from_numpy(r))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
@@ -127,7 +132,8 @@ def test_exports_interchange_with_jax(tmp_path, name, fmt):
     export_parameters(tp, MODELS[name], cfg, N_ENT, N_REL, port_path,
                       fmt=fmt)
     jax_export({k: jnp.asarray(v) for k, v in jp.items()},
-               jax_get_model(name), cfg, N_ENT, N_REL, jax_path, fmt=fmt)
+               jax_get_model(name), config_as(JaxConfig, cfg), N_ENT, N_REL,
+               jax_path, fmt=fmt)
     via_port = import_parameters(jax_path)
     for k, spec in MODELS[name].tables(cfg, N_ENT, N_REL).items():
         np.testing.assert_array_equal(via_port[k], jp[k][:spec.rows])

@@ -10,17 +10,20 @@ import numpy as np
 import pytest
 import torch
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu.config import Config as JaxConfig
 from openkeonspark_tpu.data.index import build_kg_index
 from openkeonspark_tpu.data.synth import random_kg
 from openkeonspark_tpu.models import get_model as jax_get_model
 from openkeonspark_tpu.sampling.device import DeviceSampler as JaxSampler
 from openkeonspark_tpu.train import step as jstep
 from openkeonspark_tpu_torch.ckpt import params_from_numpy
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models import get_model
 from openkeonspark_tpu_torch.sampling import DeviceSampler
 from openkeonspark_tpu_torch.train import optim
 from openkeonspark_tpu_torch.train import step as tstep
+
+from torch_parity import config_as
 
 CPU = torch.device("cpu")
 KG = dict(n_ent=60, n_rel=5, n_triples=600, n_valid=20, n_test=20, seed=11)
@@ -75,10 +78,11 @@ def test_lazy_opt_steps_match_jax(model, opt):
     ds = random_kg(**KG)
     idx = build_kg_index(ds, for_eval=False)
     jmodel, tmodel = jax_get_model(model), get_model(model)
-    jstate = jstep.init_state(jmodel, cfg, ds.n_ent, ds.n_rel,
+    jcfg = config_as(JaxConfig, cfg)
+    jstate = jstep.init_state(jmodel, jcfg, ds.n_ent, ds.n_rel,
                               jax.random.key(5))
     jsampler = JaxSampler.build(ds, idx)
-    jfn = jstep.build_train_step(jmodel, cfg, jsampler, B)
+    jfn = jstep.build_train_step(jmodel, jcfg, jsampler, B)
     assert not tstep.use_grouped_transr(cfg)
 
     tparams = params_from_numpy(

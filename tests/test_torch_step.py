@@ -27,6 +27,7 @@ from openkeonspark_tpu_torch.train.optim import (WIDE_SCATTER_MIN_WIDTH,
                                                  DenseUpdate, make_optimizer)
 
 from oracle import dense_sgd_step
+from torch_parity import port_config
 
 CPU = torch.device("cpu")
 
@@ -59,7 +60,7 @@ def _setup(model, cfg, ds_kw, key, B, sample_key):
         cfg.bern)
     tparams = params_from_numpy(
         {k: np.asarray(v) for k, v in state.params.items()},
-        get_model(model), cfg, ds.n_ent, ds.n_rel, CPU)
+        get_model(model), port_config(cfg), ds.n_ent, ds.n_rel, CPU)
     tbatch = SampledBatch(**{
         k: None if getattr(batch, k) is None
         else torch.from_numpy(np.asarray(getattr(batch, k)).astype(np.int64))
@@ -92,8 +93,8 @@ def test_transr_grouped_step_matches_jax(monkeypatch):
     grouped step (its Pallas kernels in interpret mode): loss and post-SGD
     tables."""
     monkeypatch.setenv("OKST_PALLAS_INTERPRET", "1")
-    cfg = TRANSR
-    assert jstep.use_grouped_transr(cfg) and tstep.use_grouped_transr(cfg)
+    cfg, tcfg = TRANSR, port_config(TRANSR)
+    assert jstep.use_grouped_transr(cfg) and tstep.use_grouped_transr(tcfg)
     ds, state, batch, tparams, tbatch = _setup("transr", cfg, TRANSR_KG, 2,
                                                128, 9)
     loss_j, upd_j = jstep.loss_and_row_grads_transr_grouped(
@@ -101,10 +102,10 @@ def test_transr_grouped_step_matches_jax(monkeypatch):
     want, _ = jax_opt(cfg).apply(state.params, state.opt_state, upd_j,
                                  state.step)
     loss_t, upd_t = tstep.loss_and_row_grads_transr_grouped(
-        get_model("transr"), cfg, tparams, tbatch)
+        get_model("transr"), tcfg, tparams, tbatch)
     assert isinstance(upd_t["transfer_matrix"], DenseUpdate)
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
-    make_optimizer(cfg).apply(tparams, {}, upd_t, 0)
+    make_optimizer(tcfg).apply(tparams, {}, upd_t, 0)
     for k in want:
         np.testing.assert_allclose(tparams[k].numpy(), np.asarray(want[k]),
                                    atol=1e-5, err_msg=k)
@@ -115,8 +116,9 @@ def test_transr_grouped_step_matches_generic_step(loss_mode):
     """The port's grouped step against its own generic step (gathered
     per-row matrices): same loss, same dense gradients of every table,
     same post-SGD tables."""
-    cfg = TRANSR.replace(loss_mode=loss_mode)
-    _, _, _, tparams, tbatch = _setup("transr", cfg, TRANSR_KG, 3, 96, 4)
+    _, _, _, tparams, tbatch = _setup(
+        "transr", TRANSR.replace(loss_mode=loss_mode), TRANSR_KG, 3, 96, 4)
+    cfg = port_config(TRANSR.replace(loss_mode=loss_mode))
     model = get_model("transr")
     loss_g, upd_g = tstep.loss_and_row_grads_transr_grouped(
         model, cfg, tparams, tbatch)
@@ -146,8 +148,9 @@ def test_transr_generic_step_matches_jax(loss_mode):
     1e-5."""
     cfg = TRANSR.replace(negative_rel=1, loss_mode=loss_mode, ent_size=64,
                          rel_size=64)
+    tcfg = port_config(cfg)
     assert not jstep.use_grouped_transr(cfg)
-    assert not tstep.use_grouped_transr(cfg)
+    assert not tstep.use_grouped_transr(tcfg)
     assert cfg.d_ent * cfg.d_rel >= WIDE_SCATTER_MIN_WIDTH
     ds = random_kg(**TRANSR_KG)
     idx = build_kg_index(ds, for_eval=False)
@@ -155,11 +158,11 @@ def test_transr_generic_step_matches_jax(loss_mode):
                              ds.n_rel, jax.random.key(6))
     jfn = jstep.build_train_step(jax_get_model("transr"), cfg,
                                  JaxSampler.build(ds, idx), 64)
-    tfn = tstep.build_train_step(get_model("transr"), cfg, 64)
+    tfn = tstep.build_train_step(get_model("transr"), tcfg, 64)
     assert tfn.bits_shape == tuple(jfn.bits_shape)
     tparams = params_from_numpy(
         {k: np.asarray(v) for k, v in state.params.items()},
-        get_model("transr"), cfg, ds.n_ent, ds.n_rel, CPU)
+        get_model("transr"), tcfg, ds.n_ent, ds.n_rel, CPU)
     bits = np.random.default_rng(8).integers(0, 1 << 32, size=tfn.bits_shape,
                                              dtype=np.uint64)
     jsampler, tsampler = JaxSampler.build(ds, idx), DeviceSampler.build(
@@ -211,9 +214,10 @@ def test_transe_step_matches_jax_and_oracle(loss_mode):
     oracle_loss, oracle = dense_sgd_step("transe", cfg, dense0,
                                          *_flat_ids(batch), B)
 
-    loss_t, upd_t = tstep.loss_and_row_grads(get_model("transe"), cfg,
+    tcfg = port_config(cfg)
+    loss_t, upd_t = tstep.loss_and_row_grads(get_model("transe"), tcfg,
                                              tparams, tbatch)
-    make_optimizer(cfg).apply(tparams, {}, upd_t, 0)
+    make_optimizer(tcfg).apply(tparams, {}, upd_t, 0)
     np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
     np.testing.assert_allclose(float(loss_t), oracle_loss, rtol=1e-5)
     for k in want:
@@ -228,18 +232,18 @@ def test_two_steps_keep_parity():
     """Two steps through the port's step function (its own sampler, fed
     numpy bits) stay allclose to two dense oracle steps: updates
     accumulate across steps, duplicate rows included."""
-    cfg = TRANSE
+    cfg, tcfg = TRANSE, port_config(TRANSE)
     B = 32
     ds = random_kg(**TRANSE_KG)
     model = get_model("transe")
-    state = tstep.init_state(model, cfg, ds.n_ent, ds.n_rel,
+    state = tstep.init_state(model, tcfg, ds.n_ent, ds.n_rel,
                              torch.Generator().manual_seed(5), CPU)
-    specs = model.tables(cfg, ds.n_ent, ds.n_rel)
+    specs = model.tables(tcfg, ds.n_ent, ds.n_rel)
     dense = {k: jnp.asarray(v[:specs[k].rows].numpy())
              for k, v in state.params.items()}
     sampler = DeviceSampler.build(ds, build_kg_index(ds, for_eval=False),
                                   CPU)
-    step_fn = tstep.build_train_step(model, cfg, B)
+    step_fn = tstep.build_train_step(model, tcfg, B)
     rng = np.random.default_rng(44)
     for _ in range(2):
         bits = torch.from_numpy(rng.integers(

@@ -25,7 +25,7 @@ from openkeonspark_tpu_torch.sampling import DeviceSampler
 from openkeonspark_tpu_torch.train import step as tstep
 from openkeonspark_tpu_torch.train.optim import make_optimizer
 
-from torch_parity import model_near_tie_counts
+from torch_parity import model_near_tie_counts, port_config
 
 CPU = torch.device("cpu")
 KG = dict(n_ent=70, n_rel=5, n_triples=700, n_valid=20, n_test=20, seed=13)
@@ -65,12 +65,12 @@ def test_step_matches_jax_build_train_step(model, loss_mode, p):
     jnew, jloss = jfn(jstate, jsampler, jax.random.key(0),
                       bits=jnp.asarray(bits.astype(np.uint32)))
 
-    tmodel = get_model(model)
+    tmodel, tcfg = get_model(model), port_config(cfg)
     tparams = params_from_numpy(
-        {k: np.asarray(v) for k, v in jstate.params.items()}, tmodel, cfg,
+        {k: np.asarray(v) for k, v in jstate.params.items()}, tmodel, tcfg,
         ds.n_ent, ds.n_rel, CPU)
-    tstate = tstep.TrainState(tparams, make_optimizer(cfg).init(tparams), 0)
-    tfn = tstep.build_train_step(tmodel, cfg, B)
+    tstate = tstep.TrainState(tparams, make_optimizer(tcfg).init(tparams), 0)
+    tfn = tstep.build_train_step(tmodel, tcfg, B)
     assert tfn.bits_shape == jfn.bits_shape
     tnew, tloss = tfn(tstate, DeviceSampler.build(ds, idx, CPU),
                       torch.from_numpy(bits.astype(np.int64)))
@@ -114,9 +114,10 @@ def test_cli_train_transh_matches_jax_ranks(planted_transh, capsys):
           for k, v in tables.items()}
     idx = build_kg_index(ds, for_eval=True)
     want = jax_link_prediction(jp, cfg, ds, idx)
+    tcfg = port_config(cfg)
     got = link_prediction(params_from_numpy(tables, get_model("transh"),
-                                            cfg, ds.n_ent, ds.n_rel, CPU),
-                          cfg, ds, idx)
+                                            tcfg, ds.n_ent, ds.n_rel, CPU),
+                          tcfg, ds, idx)
     ties = model_near_tie_counts("transh", tables, ds.test, 1)
     for k in want.ranks:
         diff = np.abs(got.ranks[k] - want.ranks[k])

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from openkeonspark_tpu.config import Config
+from openkeonspark_tpu.config import Config as JaxConfig
 from openkeonspark_tpu.data.dataset import save_dataset
 from openkeonspark_tpu.data.index import build_kg_index
 from openkeonspark_tpu.data.synth import planted_kg, random_kg
@@ -17,12 +17,13 @@ from openkeonspark_tpu.eval import link_prediction as jax_link_prediction
 from openkeonspark_tpu_torch.ckpt import (CheckpointManager,
                                           import_parameters, latest_step)
 from openkeonspark_tpu_torch.cli import train as train_cli
+from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models import get_model, strip_padding
 from openkeonspark_tpu_torch.runtime import NotPortedError
 from openkeonspark_tpu_torch.train.loop import train
 from openkeonspark_tpu_torch.train.step import init_state
 
-from torch_parity import transr_near_tie_counts
+from torch_parity import config_as, transr_near_tie_counts
 
 CPU = torch.device("cpu")
 QUIET = dict(echo=lambda *_: None)
@@ -211,7 +212,7 @@ def _assert_ranks_match_jax(out, ds, summary, cfg):
     jp = {k: np.concatenate([v, np.zeros((1, v.shape[1]), np.float32)])
           for k, v in tables.items()}
     idx = build_kg_index(ds, for_eval=True)
-    want = jax_link_prediction(jp, cfg, ds, idx)
+    want = jax_link_prediction(jp, config_as(JaxConfig, cfg), ds, idx)
     from openkeonspark_tpu_torch.ckpt import params_from_numpy
     from openkeonspark_tpu_torch.eval import link_prediction
     got = link_prediction(params_from_numpy(tables, get_model("transr"),

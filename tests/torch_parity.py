@@ -47,6 +47,21 @@ def transe_near_tie_counts(ent: np.ndarray, rel: np.ndarray,
         "transe", {"ent_embeddings": ent, "rel_embeddings": rel}, triples, p)
 
 
+def config_as(cls, cfg):
+    """``cfg`` rebuilt as the ``Config`` dataclass ``cls`` of the other
+    package, field by field: each package gets a config of its own."""
+    import dataclasses
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg)})
+
+
+def port_config(cfg):
+    """The port's ``Config`` with the fields of ``cfg`` (the JAX
+    package's)."""
+    from openkeonspark_tpu_torch.config import Config
+    return config_as(Config, cfg)
+
+
 def require_cuda():
     """Skip a card-only test, decided at run time, never at import."""
     import pytest
