@@ -16,6 +16,7 @@ from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.eval.classification import (Thresholds,
                                                          score_triples)
 from openkeonspark_tpu_torch.eval.scoring import candidate_scores
+from openkeonspark_tpu_torch.models import get_model
 from openkeonspark_tpu_torch.runtime import check_predict_supported
 
 
@@ -60,12 +61,16 @@ def predict_relation(params, cfg: Config, n_ent: int, n_rel: int,
     return order.astype(np.int32), scores[order]
 
 
-def predict_triple(params, cfg: Config, n_ent: int, n_rel: int, h: int,
-                   t: int, r: int, thresholds: Optional[Thresholds] = None,
+def predict_triple(params, cfg: Config, h: int, t: int, r: int,
+                   thresholds: Optional[Thresholds] = None,
                    threshold: Optional[float] = None) -> Dict[str, object]:
-    """Classify one triple: score < threshold ⇒ true. Give either fitted
-    :class:`Thresholds` or an explicit scalar threshold."""
+    """Classify one triple (reference ``predict_triple(h, t, r, thresh)``):
+    score < threshold ⇒ true. Give either fitted :class:`Thresholds` or an
+    explicit scalar threshold. The scorer's entity and relation counts
+    are read from the tables (:func:`_table_counts`); the score does not
+    depend on them."""
     check_predict_supported(cfg)
+    n_ent, n_rel = _table_counts(params, cfg)
     score = float(score_triples(params, cfg, n_ent, n_rel,
                                 np.array([[h, t, r]]))[0])
     if threshold is None:
@@ -76,3 +81,14 @@ def predict_triple(params, cfg: Config, n_ent: int, n_rel: int, h: int,
                                    thresholds.fallback))
     return {"score": score, "threshold": threshold,
             "is_true": bool(score < threshold)}
+
+
+def _table_counts(params, cfg: Config) -> Tuple[int, int]:
+    """(entities, relations) that ``params`` holds for ``cfg.model``: the
+    fewest rows of each kind's tables, less the pad row every table has
+    (there may be more pad rows; the model only needs one)."""
+    specs = get_model(cfg.model).tables(cfg, 0, 0)
+    rows = {"ent": [], "rel": []}
+    for name, spec in specs.items():
+        rows[spec.kind].append(params[name].shape[0] - 1)
+    return min(rows["ent"]), min(rows["rel"])

@@ -60,7 +60,8 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
-build_info: dict = {}   # path, seconds (0.0 when cached) and nvcc's log
+# path, seconds (0.0 when cached) and nvcc's log (kept beside the library)
+build_info: dict = {}
 
 
 def _sources():
@@ -87,9 +88,10 @@ def build() -> Path:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    lib = out_dir / LIB_NAME
+    lib, log_path = out_dir / LIB_NAME, out_dir / "nvcc.log"
     if lib.exists():
-        build_info.update(path=str(lib), seconds=0.0, log="(cached)")
+        build_info.update(path=str(lib), seconds=0.0, log=(
+            log_path.read_text() if log_path.exists() else "(cached)"))
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -117,6 +119,7 @@ def build() -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
                                f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+        log_path.write_text("".join(log))
         os.replace(so, lib)
     build_info.update(path=str(lib), seconds=time.perf_counter() - t0,
                       log="".join(log))

@@ -17,14 +17,24 @@
 // caller (ops/rank.py::transd_cdot) and read here, by the id scorer and by
 // the plain versions from the same tensor, so its rounding is shared. Per
 // lane: pe = e[d] + cdot * rp_c[d], r = q_c[d] + sign * pe, summed over
-// d = 0 .. D-1 in sequence (rank_common.cuh: FMA-free, bit for bit with
-// ops/rank.py). Each thread reads its candidate's cdot once.
+// d = 0 .. D-1 in sequence, every step rounded on its own (no FMA), as the
+// plain versions in ops/rank.py take them: kernel == plain bit for bit.
+// sign * pe is an exact negation, so the count (templated on the sign) takes
+// q + pe or q - pe directly.
 //
-// What bounds it on an H100: fp32 ALU work, about 1.7x B1's (two more
-// operations per lane and query); the FB15K-237 table (11.6 MB) and cdot
-// stay in L2.
+// What bounds it on an H100: fp32 issue. Per (query, candidate, lane) the
+// count takes 4 rounded operations at p = 1 (cdot * rp, e + ., q +- pe,
+// acc + |r|) and 5 at p = 2; at the serving slice (C = 256, 14,541
+// entities, D = 200) that is 744 M lane terms, 88.9 us at 4 instructions
+// per term and 33.5 T fp32 instructions/s. The table (11.6 MB) and cdot stay
+// in L2. The count is rank_tiled.cuh's register-tiled design with TransDTerm
+// as its lane term: 4 x 4 tiles, each thread's 4 candidates' cdot in
+// registers, q, rp and the candidates read as float4s (12 LDS.128 per 64
+// lane terms instead of 2 loads per term), a cp.async double buffer of the
+// three tiles, sign templates. The id scorer keeps one thread per
+// (query, id) pair.
 
-#include "rank_common.cuh"
+#include "rank_tiled.cuh"
 
 namespace {
 
@@ -37,46 +47,19 @@ __device__ __forceinline__ float transd_step(float acc, float q, float rp,
   return norm_step<P>(acc, __fadd_rn(q, __fmul_rn(sign, pe)));
 }
 
-template <int P>
-__global__ void __launch_bounds__(kCandTile)
-count_better_transd_kernel(const float* __restrict__ q,
-                           const float* __restrict__ rp,
-                           const float* __restrict__ table,
-                           const float* __restrict__ cdot,
-                           const float* __restrict__ gold,
-                           const int* __restrict__ gold_ids,
-                           int* __restrict__ counts, int C, int D, int n_ent,
-                           float sign) {
-  __shared__ float qs[kDChunk][kQueryTile];
-  __shared__ float rps[kDChunk][kQueryTile];
-  __shared__ float es[kDChunk][kCandTile + 1];
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * kCandTile;
-  const int q0 = blockIdx.y * kQueryTile;
-  const int e = c0 + tid;
-  const float cd = e < n_ent ? cdot[e] : 0.0f;
-
-  float acc[kQueryTile];
-#pragma unroll
-  for (int j = 0; j < kQueryTile; ++j) acc[j] = 0.0f;
-
-  for (int d0 = 0; d0 < D; d0 += kDChunk) {
-    const int dn = min(kDChunk, D - d0);
-    stage<kQueryTile>(qs, q, q0, C, D, d0, dn);
-    stage<kQueryTile>(rps, rp, q0, C, D, d0, dn);
-    stage<kCandTile>(es, table, c0, n_ent, D, d0, dn);
-    __syncthreads();
-    for (int dd = 0; dd < dn; ++dd) {
-      const float ev = es[dd][tid];
-#pragma unroll
-      for (int j = 0; j < kQueryTile; ++j) {
-        acc[j] = transd_step<P>(acc[j], qs[dd][j], rps[dd][j], ev, cd, sign);
-      }
-    }
-    __syncthreads();
+// The count's lane term: pe = e + cdot * rp, r = q + SIGN * pe, then
+// acc + |r| (P = 1) or acc + r * r (P = 2).
+template <int SIGN, int P>
+struct TransDTerm {
+  static constexpr int kOperands = 2;   // q, rp
+  static constexpr bool kScalar = true;  // cdot
+  __device__ static __forceinline__ float step(float acc,
+                                               const float (&qv)[2], float e,
+                                               float cdot) {
+    const float pe = __fadd_rn(e, __fmul_rn(cdot, qv[1]));
+    return norm_step<P>(acc, tiled::signed_add<SIGN>(qv[0], pe));
   }
-  count_tile(acc, e, q0, C, n_ent, gold, gold_ids, counts);
-}
+};
 
 // out[c, k] = the TransD score of id ids[c, k] for query c, through the
 // count kernel's steps; an id outside [0, rows) gives NaN.
@@ -116,17 +99,8 @@ extern "C" int okst_count_better_transd(const float* q, const float* rp,
                                         const int* gold_ids, int* counts,
                                         int C, int D, int n_ent, float sign,
                                         int p, void* stream) {
-  if (p != 1 && p != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = count_grid(n_ent, C);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p == 1) {
-    count_better_transd_kernel<1><<<grid, kCandTile, 0, s>>>(
-        q, rp, table, cdot, gold, gold_ids, counts, C, D, n_ent, sign);
-  } else {
-    count_better_transd_kernel<2><<<grid, kCandTile, 0, s>>>(
-        q, rp, table, cdot, gold, gold_ids, counts, C, D, n_ent, sign);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tiled::count<TransDTerm>({{q, rp}}, table, cdot, gold, gold_ids,
+                                  counts, C, D, n_ent, sign, p, stream);
 }
 
 extern "C" int okst_transd_score_ids(const float* q, const float* rp,
