@@ -11,7 +11,12 @@ relation, and :func:`run_offsets` gives each relation its run of rows
 sync. ``m3`` is the ``transfer_matrix`` table viewed as ``[rows, d_e,
 d_r]``: no copy, no padding. The TPU kernel's 128-row blocks, its padding
 of the inputs and of d_r to 128 lanes, and its aliased zeros operand are
-grid artifacts of the TPU and have no counterpart here.
+grid artifacts of the TPU and have no counterpart here. Both kernels put
+the relations on the grid and stream ``M_ρ`` once, as contiguous spans in
+16-byte ``cp.async`` copies, into register-tiled products: the forward
+over a grid of (relation, chunk of its run, column tile) with ``M_ρ``
+passing through a ring of shared-memory stages, the backward over
+(relation, row tile of ``M_ρ``) with dx and dM from one launch.
 
 CUDA tensors go through the kernels (or raise); CPU tensors, or a caller
 that asks for ``plain=True`` to hold the kernels against it, go through

@@ -17,12 +17,43 @@ from openkeonspark_tpu.ops.pallas_grouped import pad_inputs
 from openkeonspark_tpu_torch.ops import grouped
 
 
-def _inputs(n_rel, de, dr, n_rows, seed):
+def _inputs(n_rel, de, dr, n_rows, seed, rel=None):
+    """Unit normal x and M for a random stream (the seed's shapes); a given
+    stream (the edge shapes) gets both scaled by 0.1, nearer the training
+    slice's magnitudes, where fp32 sums hold ``rtol = atol = 1e-5``."""
     rng = np.random.default_rng(seed)
-    rel = np.sort(rng.integers(0, n_rel, n_rows))
-    x = rng.normal(size=(n_rows, de)).astype(np.float32)
-    m3 = rng.normal(size=(n_rel, de, dr)).astype(np.float32)
+    scale = np.float32(1.0 if rel is None else 0.1)
+    rel = (np.sort(rng.integers(0, n_rel, n_rows)) if rel is None
+           else np.asarray(rel))
+    x = scale * rng.normal(size=(n_rows, de)).astype(np.float32)
+    m3 = scale * rng.normal(size=(n_rel, de, dr)).astype(np.float32)
     return rel, x, m3
+
+
+def _jax_operands(m3, x, rel):
+    """(m3, x, rel) as the Pallas kernel takes them: d_e zero-padded to a
+    multiple of 8, d_r to a multiple of 128, rows to its group (the zeros
+    add nothing to y, and their gradients are cut off again)."""
+    de, dr = m3.shape[1:]
+    m3p = jnp.pad(m3, ((0, 0), (0, -de % 8), (0, -dr % 128)))
+    xp, relp = pad_inputs(jnp.pad(x, ((0, 0), (0, -de % 8))), rel)
+    return m3p, xp, relp
+
+
+# (n_rel, n_rows, de, dr, the sorted relation stream or None for a random
+# one): the seed's shapes, then the edge shapes of the card tests: widths
+# that are no multiple of 4 (with absent relations), one relation owning a run of
+# several thousand rows beside absent relations, and runs of 40 and 41 rows
+# (one chunk of the CUDA forward kernel, and one chunk plus a row)
+_SHAPES = [
+    pytest.param(5, 300, 16, 128, None, id="5-300"),
+    pytest.param(1, 64, 16, 128, None, id="1-64"),
+    pytest.param(40, 1000, 16, 128, None, id="40-1000"),
+    pytest.param(7, 100, 6, 5, sorted([0, 2, 3, 6] * 25), id="de6-dr5"),
+    pytest.param(7, 100, 33, 37, sorted([1, 2, 2, 5] * 25), id="de33-dr37"),
+    pytest.param(9, 3000, 16, 128, [4] * 3000, id="one-relation-3000-rows"),
+    pytest.param(12, 81, 24, 100, [3] * 40 + [9] * 41, id="runs-of-40-and-41"),
+]
 
 
 @pytest.mark.parametrize("rel", [[2, 2, 2, 5, 6, 6, 6, 6], [0], [3, 3],
@@ -36,32 +67,49 @@ def test_run_offsets_match_numpy(rel):
         got.numpy(), np.searchsorted(rel, np.arange(n_rows + 1), "left"))
 
 
-@pytest.mark.parametrize("n_rel,n_rows", [(5, 300), (1, 64), (40, 1000)])
-def test_grouped_project_matches_jax(n_rel, n_rows):
-    rel, x, m3 = _inputs(n_rel, 16, 128, n_rows, seed=3)
-    xp, relp = pad_inputs(jnp.asarray(x), jnp.asarray(rel.astype(np.int32)))
-    pallas = np.asarray(jax_grouped_project(jnp.asarray(m3), xp, relp,
-                                            True)[:n_rows])
+@pytest.mark.parametrize("n_rel,n_rows,de,dr,rel", _SHAPES)
+def test_grouped_project_matches_jax(n_rel, n_rows, de, dr, rel):
+    """The plain forward against the Pallas kernel in interpret mode and
+    the gather/einsum reference, ``atol = 1e-5`` (the edge shapes also
+    ``rtol = 1e-5``)."""
+    rel, x, m3 = _inputs(n_rel, de, dr, n_rows, seed=3, rel=rel)
+    m3p, xp, relp = _jax_operands(jnp.asarray(m3), jnp.asarray(x),
+                                  jnp.asarray(rel.astype(np.int32)))
+    pallas = np.asarray(jax_grouped_project(m3p, xp, relp,
+                                            True)[:n_rows, :dr])
     ref = np.asarray(jax_grouped_project_ref(
         jnp.asarray(m3), jnp.asarray(x), jnp.asarray(rel.astype(np.int32))))
     rel_t = torch.from_numpy(rel)
     got = grouped.grouped_project(torch.from_numpy(m3), torch.from_numpy(x),
                                   rel_t, grouped.run_offsets(rel_t, n_rel))
-    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-5)
-    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+    rtol = 1e-7 if n_rows in (300, 64, 1000) else 1e-5  # the seed's shapes
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=rtol, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=rtol, atol=1e-5)
 
 
 def test_grouped_project_vjp_matches_jax():
     """Gradients of Σ sin(y) against the JAX package's custom VJP (the
     Pallas backward kernel in interpret mode) and its reference."""
-    n_rel, de, dr, n_rows = 9, 24, 128, 500
-    rel, x, m3 = _inputs(n_rel, de, dr, n_rows, seed=7)
+    _check_vjp(9, 500, 24, 128, None, atol=2e-5, rtol=1e-7)
+
+
+@pytest.mark.parametrize("n_rel,n_rows,de,dr,rel", _SHAPES[3:])
+def test_grouped_project_vjp_matches_jax_at_edge_shapes(n_rel, n_rows, de,
+                                                        dr, rel):
+    """The same at the edge shapes, ``rtol = atol = 1e-5``; the
+    gradients' scale grows with the run (dM of a 3,000-row run is a sum of
+    3,000 outer products), which the relative part takes up."""
+    _check_vjp(n_rel, n_rows, de, dr, rel, atol=1e-5, rtol=1e-5)
+
+
+def _check_vjp(n_rel, n_rows, de, dr, rel, atol, rtol):
+    rel, x, m3 = _inputs(n_rel, de, dr, n_rows, seed=7, rel=rel)
     rel_j = jnp.asarray(rel.astype(np.int32))
 
     def f(m3_, x_):
-        xp, relp = pad_inputs(x_, rel_j)
-        return jnp.sum(jnp.sin(jax_grouped_project(m3_, xp, relp,
-                                                   True)[:n_rows]))
+        m3p, xp, relp = _jax_operands(m3_, x_, rel_j)
+        return jnp.sum(jnp.sin(jax_grouped_project(m3p, xp, relp,
+                                                   True)[:n_rows, :dr]))
 
     def f_ref(m3_, x_):
         return jnp.sum(jnp.sin(jax_grouped_project_ref(m3_, x_, rel_j)))
@@ -78,7 +126,8 @@ def test_grouped_project_vjp_matches_jax():
     torch.sin(y).sum().backward()
     for got, want in ((m3_t.grad, dm_j), (x_t.grad, dx_j),
                       (m3_t.grad, dm_r), (x_t.grad, dx_r)):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
+                                   atol=atol)
 
 
 def test_absent_relations_get_exactly_zero_dm():

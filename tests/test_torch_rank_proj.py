@@ -33,27 +33,45 @@ def _unit(v):
     return v / np.sqrt((v * v).sum(-1, keepdims=True))
 
 
-def _check_counts(got, want_jax, s64, gold, gold_ids):
+def _check_counts(got, want_jax, s64, gold, gold_ids, tie_free=False):
     """Counts equal the JAX kernel's and the float64 brute force's on every
-    query without a near-tie; near-tie queries stay rare."""
+    query without a near-tie; near-tie queries stay rare (``tie_free``:
+    the seeded inputs have none)."""
     C = len(gold)
     s = s64.copy()
     s[np.arange(C), gold_ids] = np.inf            # gold masked in the count
     want_np = (s < gold[:, None]).sum(1)
     tie = near_tie_queries(s, gold.astype(np.float64))
     assert tie.mean() < MAX_NEAR_TIE_SHARE
+    assert not (tie_free and tie.any())
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got[~tie], np.asarray(want_jax)[~tie])
     np.testing.assert_array_equal(got[~tie], want_np[~tie])
 
 
-@pytest.mark.parametrize("p", [1, 2])
-@pytest.mark.parametrize("sign", [-1.0, 1.0])
-def test_transh_count_matches_jax_interpret_and_numpy(sign, p):
+# gold ranges (p = 1, p = 2) in the lower tail of the scores at each width;
+# at D = 1 the unit normal is +-1, every projected candidate is 0 and every
+# score is |q| or q^2, so a query counts every candidate or none
+_TRANSH_GOLD = {24: ((13, 21), (20, 36)), 33: ((24, 32), (35, 55)),
+                1: ((0.2, 1.5), (0.05, 2.0))}
+# the seed's shape, then the edge shapes of the card tests (C = 1 and 17,
+# D = 1 and 33: one query, a query tile that is not full, one lane, a width
+# that is no multiple of 4); the edge inputs are seeded tie-free, so every
+# query is compared
+_TRANSH_CASES = [
+    pytest.param(sign, p, 128, 24, id=f"{sign}-{p}")
+    for p in (1, 2) for sign in (-1.0, 1.0)] + [
+    pytest.param(sign, p, C, D, id=f"{sign}-{p}-C{C}-D{D}")
+    for C in (1, 17) for D in (1, 33) for p in (1, 2)
+    for sign in (-1.0, 1.0)]
+
+
+@pytest.mark.parametrize("sign,p,C,D", _TRANSH_CASES)
+def test_transh_count_matches_jax_interpret_and_numpy(sign, p, C, D):
     """B6 on the table of test_transh_kernel_direct_matches_generic; gold
     in the lower tail of the scores, so counts are small but not 0."""
     _, table, q, w, gold, gold_ids = _count_inputs(
-        9, 200, 24, 128, *((13, 21) if p == 1 else (20, 36)))
+        9, 200, D, C, *_TRANSH_GOLD[D][p - 1])
     w = _unit(w)
     E = table.shape[0]
     got = rank.count_better_transh(T(q), T(w), T(table), T(gold),
@@ -64,7 +82,7 @@ def test_transh_count_matches_jax_interpret_and_numpy(sign, p):
         jnp.asarray(gold), jnp.asarray(gold_ids), sign=sign, p=p, n_ent=E,
         block=BLOCK, interpret=True)
     _check_counts(got, want, transh_scores64(q, w, table, sign, p), gold,
-                  gold_ids)
+                  gold_ids, tie_free=(C, D) != (128, 24))
 
 
 @pytest.mark.parametrize("p", [1, 2])
