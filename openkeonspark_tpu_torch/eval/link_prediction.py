@@ -9,8 +9,12 @@ entity table in one fused pass by the model's count kernel
 (``ops/rank.py``: B1 TransE, B6 TransH, B2 TransD, B3 RotatE; CUDA on the
 card). The filtered rank subtracts the known-true candidates (all splits)
 that score better: their ids are gathered on the device from the group
-index into a ``[C, K]`` window padded with ``n_ent`` and scored through
-the same arithmetic as the count, so the subtraction is tie-exact.
+index into a ``[C, K]`` window and scored through the same arithmetic as
+the count, so the subtraction is tie-exact. The window is padded with the
+swept table's row count, an id outside the table: the id scorers give it
+NaN without reading a row, and the padding is masked out. Most of a window
+is padding (the known-true lists are short beside the longest), so the id
+scorers do work only for real ids.
 
 TransR, and TransH by default, go relation by relation
 (:func:`_grouped_link_prediction`), as the reference does: test triples
@@ -140,14 +144,14 @@ def _scorers(model: str, ops: tuple, sign: float, p: int, n_ent: int,
             lambda ids: scores(*ops, ids, sign, *norm))
 
 
-def _count_chunk(count, scores, rows: int, gold_ids: torch.Tensor,
-                 known: torch.Tensor, n_ent: int):
+def _count_chunk(count, scores, gold_ids: torch.Tensor, known: torch.Tensor,
+                 n_ent: int):
     """Raw and filtered counts of strictly better candidates for one query
     chunk (:func:`_scorers`); ``gold_ids`` [C] and ``known`` [C, K] int32,
-    ``rows`` the swept table's rows."""
+    the window padded with the swept table's row count (scored NaN)."""
     gold_s = scores(gold_ids)
     raw = count(gold_s, gold_ids)
-    ks = scores(known.clamp(max=rows - 1))
+    ks = scores(known)
     kvalid = (known < n_ent) & (known != gold_ids[:, None])
     known_better = ((ks < gold_s[:, None]) & kvalid).sum(1, dtype=torch.int32)
     return raw, raw - known_better
@@ -208,6 +212,7 @@ def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
     table is projected once per chunk and both directions sweep the
     projected table with the TransE count kernel (B1)."""
     dev = params["ent_embeddings"].device
+    rows = params["ent_embeddings"].shape[0]    # the projected tables' too
     project = _relation_projection(cfg, params)
     Rt = params["rel_embeddings"]
     chunk = min(eval_chunk_size(cfg), 64)   # small chunks bound the padding
@@ -222,8 +227,8 @@ def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
             proj = project(rho)                          # [rows, d']
             rvec = Rt[rho]
             hq, tq = h[ci], t[ci]
-            kt = known_matrix(vals_t, ot[ci], ct[ci], k_max, ds.n_ent)
-            kh = known_matrix(vals_h, oh[ci], ch[ci], k_max, ds.n_ent)
+            kt = known_matrix(vals_t, ot[ci], ct[ci], k_max, rows)
+            kh = known_matrix(vals_h, oh[ci], ch[ci], k_max, rows)
             for keys, q, sign, gold, known in (
                     (("raw_tail", "filt_tail"),
                      proj[hq.long()] + rvec, -1.0, tq, kt),
@@ -231,8 +236,7 @@ def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
                      rvec - proj[tq.long()], 1.0, hq, kh)):
                 count, scores = _scorers("transe", (q.contiguous(), proj),
                                          sign, cfg.p_norm, ds.n_ent, plain)
-                for k, v in zip(keys, _count_chunk(count, scores,
-                                                   proj.shape[0], gold,
+                for k, v in zip(keys, _count_chunk(count, scores, gold,
                                                    known, ds.n_ent)):
                     out[k].append(v)
     ranks = {k: np.empty(len(triples), np.int64) for k in out}
@@ -272,14 +276,14 @@ def _chunked_link_prediction(params, cfg: Config, ds: Dataset,
         out = {k: [] for k in ranks}
         for c in range(0, e - s, chunk):
             sl = slice(c, c + chunk)
-            kt = known_matrix(vals_t, ot[sl], ct[sl], k_max, ds.n_ent)
-            kh = known_matrix(vals_h, oh[sl], ch[sl], k_max, ds.n_ent)
+            kt = known_matrix(vals_t, ot[sl], ct[sl], k_max, rows)
+            kh = known_matrix(vals_h, oh[sl], ch[sl], k_max, rows)
             for replace, gold, known in (("tail", t[sl], kt),
                                          ("head", h[sl], kh)):
                 count, scores = _chunk_scorers(cfg, params, cdot, h[sl],
                                                t[sl], r[sl], replace,
                                                ds.n_ent, plain)
-                raw, filt = _count_chunk(count, scores, rows, gold, known,
+                raw, filt = _count_chunk(count, scores, gold, known,
                                          ds.n_ent)
                 out[f"raw_{replace}"].append(raw)
                 out[f"filt_{replace}"].append(filt)

@@ -14,11 +14,11 @@
 // take the same rounded steps: the sum runs over d = 0 .. D-1 in sequence,
 // in fp32, with __fadd_rn / __fsub_rn / __fmul_rn so that no step is
 // contracted into an FMA. sign is +-1, so sign * e is an exact negation:
-// the id scorer adds q + sign * e, the count (templated on the sign) q + e
-// or q - e, the same value. Gold, known and candidate scores are therefore
-// bit-identical for the same (query, entity) pair, ranks are tie-exact, and
-// the plain PyTorch version in ops/rank.py, which takes the same steps,
-// agrees bit for bit.
+// the count and the id scorer, templated on the sign, take q + e or q - e,
+// the plain version q + sign * e, the same value. Gold, known and candidate
+// scores are therefore bit-identical for the same (query, entity) pair,
+// ranks are tie-exact, and the plain PyTorch version in ops/rank.py, which
+// takes the same steps, agrees bit for bit.
 //
 // What bounds it on an H100: fp32 issue. Per (query, candidate, lane) the
 // count takes 2 rounded operations at p = 1 (q +- e, then acc + |r|) and 3
@@ -29,32 +29,18 @@
 // design (4 x 4 tiles, float4 lane reads, a cp.async double buffer, sign
 // templates) with TransETerm as its lane term; at 2 instructions per term
 // its 8 LDS.128 per 64 terms and the staging copies weigh more than in
-// B2 or B3. The id scorer keeps one thread per (query, id) pair.
+// B2 or B3. The id scorer is rank_ids.cuh's warp-slice scorer with
+// TransEIds as its lane term (latency-bound; see there).
 //
 // Plain C interface, loaded with ctypes (ops/build.py); each launcher
 // returns the cudaError_t of its launch.
 
+#include "rank_ids.cuh"
 #include "rank_tiled.cuh"
 
 namespace {
 
 using namespace okst;
-
-template <int P>
-__device__ __forceinline__ float dist_step(float acc, float qv, float sev) {
-  return norm_step<P>(acc, __fadd_rn(qv, sev));
-}
-
-// ||q_row + sign * e_row||_p over d = 0 .. D-1 in sequence.
-template <int P>
-__device__ float dist(const float* __restrict__ q_row,
-                      const float* __restrict__ e_row, float sign, int D) {
-  float acc = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    acc = dist_step<P>(acc, q_row[d], __fmul_rn(sign, e_row[d]));
-  }
-  return acc;
-}
 
 // The count's lane term: r = q + SIGN * e, then acc + |r| (P = 1) or
 // acc + r * r (P = 2).
@@ -69,22 +55,24 @@ struct TransETerm {
   }
 };
 
-// out[c, k] = dist(q_c, E[ids[c, k]]); an id outside [0, rows) gives NaN.
-template <int P>
-__global__ void score_ids_kernel(const float* __restrict__ q,
-                                 const float* __restrict__ table,
-                                 const int* __restrict__ ids,
-                                 float* __restrict__ out, int C, int K, int D,
-                                 int rows, float sign) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(C) * K) return;
-  const int c = static_cast<int>(i / K);
-  const int id = ids[i];
-  out[i] = (id >= 0 && id < rows)
-               ? dist<P>(q + static_cast<size_t>(c) * D,
-                         table + static_cast<size_t>(id) * D, sign, D)
-               : quiet_nan();
+// The id scorer's lane term: the same steps, from the query's and the
+// row's value at the lane.
+template <int SIGN, int P>
+struct TransEIds {
+  static constexpr int kQ = 1, kE = 1;
+  static constexpr bool kRecompute = false;
+  __device__ static __forceinline__ float step(float acc,
+                                               const float (&q)[1],
+                                               const float (&e)[1]) {
+    return norm_step<P>(acc, tiled::signed_add<SIGN>(q[0], e[0]));
+  }
+};
+
+template <int SIGN, int P>
+int score_ids(const float* q, const float* table, const int* ids, float* out,
+              int C, int K, int D, int rows, void* stream) {
+  return id_scorer::score_ids<TransEIds<SIGN, P>>(
+      {{q}, D, table, {0}, D}, ids, out, C, K, D, rows, stream);
 }
 
 }  // namespace
@@ -103,14 +91,12 @@ extern "C" int okst_transe_score_ids(const float* q, const float* table,
                                      int K, int D, int rows, float sign,
                                      int p, void* stream) {
   if (p != 1 && p != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = id_blocks(C, K);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p == 1) {
-    score_ids_kernel<1><<<blocks, kIdThreads, 0, s>>>(q, table, ids, out, C,
-                                                      K, D, rows, sign);
-  } else {
-    score_ids_kernel<2><<<blocks, kIdThreads, 0, s>>>(q, table, ids, out, C,
-                                                      K, D, rows, sign);
+  if (sign > 0) {
+    return p == 1
+               ? score_ids<1, 1>(q, table, ids, out, C, K, D, rows, stream)
+               : score_ids<1, 2>(q, table, ids, out, C, K, D, rows, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return p == 1
+             ? score_ids<-1, 1>(q, table, ids, out, C, K, D, rows, stream)
+             : score_ids<-1, 2>(q, table, ids, out, C, K, D, rows, stream);
 }
