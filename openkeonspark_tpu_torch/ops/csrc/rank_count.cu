@@ -58,12 +58,11 @@ struct TransETerm {
 // The id scorer's lane term: the same steps, from the query's and the
 // row's value at the lane.
 template <int SIGN, int P>
-struct TransEIds {
+struct TransEIds : id_scorer::TermDefaults {
   static constexpr int kQ = 1, kE = 1;
-  static constexpr bool kRecompute = false;
   __device__ static __forceinline__ float step(float acc,
                                                const float (&q)[1],
-                                               const float (&e)[1]) {
+                                               const float (&e)[1], float) {
     return norm_step<P>(acc, tiled::signed_add<SIGN>(q[0], e[0]));
   }
 };

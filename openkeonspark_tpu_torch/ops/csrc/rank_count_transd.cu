@@ -31,24 +31,27 @@
 // as its lane term: 4 x 4 tiles, each thread's 4 candidates' cdot in
 // registers, q, rp and the candidates read as float4s (12 LDS.128 per 64
 // lane terms instead of 2 loads per term), a cp.async double buffer of the
-// three tiles, sign templates. The id scorer keeps one thread per
-// (query, id) pair.
+// three tiles, sign templates. The id scorer is rank_ids.cuh's warp-slice
+// scorer with TransDIds as its lane term and cdot[id] as its per-id scalar
+// (latency-bound; see there).
 
+#include "rank_ids.cuh"
 #include "rank_tiled.cuh"
 
 namespace {
 
 using namespace okst;
 
-template <int P>
+// pe = e + cdot * rp, r = q + SIGN * pe, then acc + |r| (P = 1) or
+// acc + r * r (P = 2)
+template <int SIGN, int P>
 __device__ __forceinline__ float transd_step(float acc, float q, float rp,
-                                             float e, float cdot, float sign) {
+                                             float e, float cdot) {
   const float pe = __fadd_rn(e, __fmul_rn(cdot, rp));
-  return norm_step<P>(acc, __fadd_rn(q, __fmul_rn(sign, pe)));
+  return norm_step<P>(acc, tiled::signed_add<SIGN>(q, pe));
 }
 
-// The count's lane term: pe = e + cdot * rp, r = q + SIGN * pe, then
-// acc + |r| (P = 1) or acc + r * r (P = 2).
+// The count's lane term.
 template <int SIGN, int P>
 struct TransDTerm {
   static constexpr int kOperands = 2;   // q, rp
@@ -56,39 +59,33 @@ struct TransDTerm {
   __device__ static __forceinline__ float step(float acc,
                                                const float (&qv)[2], float e,
                                                float cdot) {
-    const float pe = __fadd_rn(e, __fmul_rn(cdot, qv[1]));
-    return norm_step<P>(acc, tiled::signed_add<SIGN>(qv[0], pe));
+    return transd_step<SIGN, P>(acc, qv[0], qv[1], e, cdot);
   }
 };
 
-// out[c, k] = the TransD score of id ids[c, k] for query c, through the
-// count kernel's steps; an id outside [0, rows) gives NaN.
-template <int P>
-__global__ void transd_score_ids_kernel(const float* __restrict__ q,
-                                        const float* __restrict__ rp,
-                                        const float* __restrict__ table,
-                                        const float* __restrict__ cdot,
-                                        const int* __restrict__ ids,
-                                        float* __restrict__ out, int C, int K,
-                                        int D, int rows, float sign) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(C) * K) return;
-  const int c = static_cast<int>(i / K);
-  const int id = ids[i];
-  if (id < 0 || id >= rows) {
-    out[i] = quiet_nan();
-    return;
+// The id scorer's lane term: the same steps, from the query's q and rp and
+// the row's value at the lane, with the id's cdot as the pair's scalar. No
+// kRecompute: the scorer takes the plain version's rounded operations in
+// its order, with no square root or other function whose fast path differs
+// from the plain version's outside the finite range, so an overflowing or
+// NaN pair already gives the plain version's inf or NaN (card test).
+template <int SIGN, int P>
+struct TransDIds : id_scorer::TermDefaults {
+  static constexpr int kQ = 2, kE = 1;   // q, rp; E[id]
+  static constexpr bool kIdScalar = true;  // cdot[id]
+  __device__ static __forceinline__ float step(float acc,
+                                               const float (&q)[2],
+                                               const float (&e)[1],
+                                               float cdot) {
+    return transd_step<SIGN, P>(acc, q[0], q[1], e[0], cdot);
   }
-  const float* q_row = q + static_cast<size_t>(c) * D;
-  const float* rp_row = rp + static_cast<size_t>(c) * D;
-  const float* e_row = table + static_cast<size_t>(id) * D;
-  const float cd = cdot[id];
-  float acc = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    acc = transd_step<P>(acc, q_row[d], rp_row[d], e_row[d], cd, sign);
-  }
-  out[i] = acc;
+};
+
+template <int SIGN, int P>
+int score_ids(const id_scorer::Operands<2, 1>& ops, const int* ids,
+              float* out, int C, int K, int D, int rows, void* stream) {
+  return id_scorer::score_ids<TransDIds<SIGN, P>>(ops, ids, out, C, K, D,
+                                                  rows, stream);
 }
 
 }  // namespace
@@ -109,14 +106,11 @@ extern "C" int okst_transd_score_ids(const float* q, const float* rp,
                                      int D, int rows, float sign, int p,
                                      void* stream) {
   if (p != 1 && p != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = id_blocks(C, K);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p == 1) {
-    transd_score_ids_kernel<1><<<blocks, kIdThreads, 0, s>>>(
-        q, rp, table, cdot, ids, out, C, K, D, rows, sign);
-  } else {
-    transd_score_ids_kernel<2><<<blocks, kIdThreads, 0, s>>>(
-        q, rp, table, cdot, ids, out, C, K, D, rows, sign);
+  const id_scorer::Operands<2, 1> ops{{q, rp}, D, table, {0}, D, cdot};
+  if (sign > 0) {
+    return p == 1 ? score_ids<1, 1>(ops, ids, out, C, K, D, rows, stream)
+                  : score_ids<1, 2>(ops, ids, out, C, K, D, rows, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return p == 1 ? score_ids<-1, 1>(ops, ids, out, C, K, D, rows, stream)
+                : score_ids<-1, 2>(ops, ids, out, C, K, D, rows, stream);
 }

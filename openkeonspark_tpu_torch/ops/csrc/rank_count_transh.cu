@@ -20,9 +20,10 @@
 // registers (dot + w_c[d] * e[d], d = 0 .. D-1 in sequence: DotTerm over
 // the operand row w), sweep 2 the residual norm with pe = e[d] - dot *
 // w_c[d], r = q_c[d] +- pe (ResidualTerm over q and w, the pair's dot as
-// its scalar). The id scorer runs the same two sums for one (query, id)
-// pair and multiplies by the sign, an exact negation, so counts and scores
-// are tie-exact and equal the plain version in ops/rank.py bit for bit. The
+// its scalar). The id scorer, rank_ids.cuh's warp-slice scorer with
+// TransHIds as its lane term, runs the same two sums for each (query, id)
+// pair, the dot a first pass over the staged row, so counts and scores are
+// tie-exact and equal the plain version in ops/rank.py bit for bit. The
 // TPU kernel took the dot as one HIGHEST-precision MXU contraction; the two
 // packages differ only in the float-tie class of pallas_rank.py:39-46.
 //
@@ -43,6 +44,7 @@
 // them beside the port's (NVIDIA H100 80GB HBM3, 700 W). No tensor cores:
 // the dot's rounding order is part of the contract.
 
+#include "rank_ids.cuh"
 #include "rank_tiled.cuh"
 
 namespace {
@@ -52,18 +54,21 @@ using namespace okst;
 constexpr int kWarps = 4;        // query groups of 4 per block
 constexpr int kBlocksPerSM = 6;  // resident blocks asked of ptxas: 80 registers
 
+// dot + w * e
 __device__ __forceinline__ float dot_step(float dot, float w, float e) {
   return __fadd_rn(dot, __fmul_rn(w, e));
 }
 
-template <int P>
-__device__ __forceinline__ float transh_step(float acc, float q, float w,
-                                             float e, float dot, float sign) {
+// pe = e - dot * w, r = q + SIGN * pe, then acc + |r| (P = 1) or
+// acc + r * r (P = 2)
+template <int SIGN, int P>
+__device__ __forceinline__ float residual_step(float acc, float q, float w,
+                                               float e, float dot) {
   const float pe = __fsub_rn(e, __fmul_rn(dot, w));
-  return norm_step<P>(acc, __fadd_rn(q, __fmul_rn(sign, pe)));
+  return norm_step<P>(acc, tiled::signed_add<SIGN>(q, pe));
 }
 
-// Sweep 1's lane term: dot + w * e.
+// Sweep 1's lane term.
 struct DotTerm {
   static constexpr int kOperands = 1;  // w
   __device__ static __forceinline__ float step(float dot,
@@ -73,16 +78,38 @@ struct DotTerm {
   }
 };
 
-// Sweep 2's lane term: pe = e - dot * w, r = q + SIGN * pe, then acc + |r|
-// (P = 1) or acc + r * r (P = 2).
+// Sweep 2's lane term, with the pair's dot as its scalar.
 template <int SIGN, int P>
 struct ResidualTerm {
   static constexpr int kOperands = 2;  // q, w
   __device__ static __forceinline__ float step(float acc,
                                                const float (&qv)[2], float e,
                                                float dot) {
-    const float pe = __fsub_rn(e, __fmul_rn(dot, qv[1]));
-    return norm_step<P>(acc, tiled::signed_add<SIGN>(qv[0], pe));
+    return residual_step<SIGN, P>(acc, qv[0], qv[1], e, dot);
+  }
+};
+
+// The id scorer's lane terms: a first pass of dot_step over w and the row
+// (kDot = 1: the query's column w), then residual_step over q, w and the
+// row with the pair's dot, the count's two sweeps for one pair. No
+// kRecompute: both passes take the plain version's rounded operations in
+// its order, with no square root or other function whose fast path differs
+// from the plain version's outside the finite range, so a dot or a sum that
+// overflows, or a NaN, already gives the plain version's inf or NaN (card
+// test).
+template <int SIGN, int P>
+struct TransHIds : id_scorer::TermDefaults {
+  static constexpr int kQ = 2, kE = 1;  // q, w; E[id]
+  static constexpr int kDot = 1;        // the dot's query column: w
+  __device__ static __forceinline__ float dot_step(float dot, float w,
+                                                   float e) {
+    return ::dot_step(dot, w, e);
+  }
+  __device__ static __forceinline__ float step(float acc,
+                                               const float (&q)[2],
+                                               const float (&e)[1],
+                                               float dot) {
+    return residual_step<SIGN, P>(acc, q[0], q[1], e[0], dot);
   }
 };
 
@@ -135,34 +162,11 @@ void launch_count(const float* q, const float* w, const float* table,
   }
 }
 
-// out[c, k] = the TransH score of id ids[c, k] for query c, through the
-// count kernel's two sums; an id outside [0, rows) gives NaN.
-template <int P>
-__global__ void transh_score_ids_kernel(const float* __restrict__ q,
-                                        const float* __restrict__ w,
-                                        const float* __restrict__ table,
-                                        const int* __restrict__ ids,
-                                        float* __restrict__ out, int C, int K,
-                                        int D, int rows, float sign) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(C) * K) return;
-  const int c = static_cast<int>(i / K);
-  const int id = ids[i];
-  if (id < 0 || id >= rows) {
-    out[i] = quiet_nan();
-    return;
-  }
-  const float* q_row = q + static_cast<size_t>(c) * D;
-  const float* w_row = w + static_cast<size_t>(c) * D;
-  const float* e_row = table + static_cast<size_t>(id) * D;
-  float dot = 0.0f;
-  for (int d = 0; d < D; ++d) dot = dot_step(dot, w_row[d], e_row[d]);
-  float acc = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    acc = transh_step<P>(acc, q_row[d], w_row[d], e_row[d], dot, sign);
-  }
-  out[i] = acc;
+template <int SIGN, int P>
+int score_ids(const id_scorer::Operands<2, 1>& ops, const int* ids,
+              float* out, int C, int K, int D, int rows, void* stream) {
+  return id_scorer::score_ids<TransHIds<SIGN, P>>(ops, ids, out, C, K, D,
+                                                  rows, stream);
 }
 
 }  // namespace
@@ -194,14 +198,11 @@ extern "C" int okst_transh_score_ids(const float* q, const float* w,
                                      int rows, float sign, int p,
                                      void* stream) {
   if (p != 1 && p != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = id_blocks(C, K);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p == 1) {
-    transh_score_ids_kernel<1><<<blocks, kIdThreads, 0, s>>>(
-        q, w, table, ids, out, C, K, D, rows, sign);
-  } else {
-    transh_score_ids_kernel<2><<<blocks, kIdThreads, 0, s>>>(
-        q, w, table, ids, out, C, K, D, rows, sign);
+  const id_scorer::Operands<2, 1> ops{{q, w}, D, table, {0}, D, nullptr};
+  if (sign > 0) {
+    return p == 1 ? score_ids<1, 1>(ops, ids, out, C, K, D, rows, stream)
+                  : score_ids<1, 2>(ops, ids, out, C, K, D, rows, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return p == 1 ? score_ids<-1, 1>(ops, ids, out, C, K, D, rows, stream)
+                : score_ids<-1, 2>(ops, ids, out, C, K, D, rows, stream);
 }

@@ -1,10 +1,10 @@
 // The id scorer of the rank kernels (sm_90a): the scores of explicit ids,
 // out[c, k] = score(query c, row ids[c, k]), the gold entity and the
-// known-true entities of each query, through the count's arithmetic.
-// Replaces the one-thread-per-pair scorers of B1 (rank_count.cu, the
-// counterpart of openkeonspark_tpu/ops/pallas_rank.py::
-// transe_candidate_scores) and B3 (rank_count_rotate.cu, ::
-// rotate_candidate_scores).
+// known-true entities of each query, through the count's arithmetic. The
+// id scorer of all four rank kernels, the counterpart of
+// openkeonspark_tpu/ops/pallas_rank.py's transe_, transh_, transd_ and
+// rotate_candidate_scores (B1 rank_count.cu, B6 rank_count_transh.cu, B2
+// rank_count_transd.cu, B3 rank_count_rotate.cu).
 //
 // The contract:
 //   - a pair's score is the sum over lanes l = 0 .. D-1, in that order, of
@@ -15,13 +15,23 @@
 //   - an id outside [0, rows) scores NaN, and its row is not read. Link
 //     prediction pads its [C, K] known-id windows with rows, so most of a
 //     window (85% at the serving slice) costs no row at all.
-// A Term policy gives the lane term: Term::step(acc, q, e) adds lane l's
-// term to acc from the values at lane l of the query's kQ operand columns
-// and of the row's kE table columns (TransE: q, E[id]; RotatE: the re and
-// im halves of both). A Term with kRecompute takes a pair whose sum is not
-// finite again, lane by lane from device memory, with Term::exact_step
-// (RotatE's square root, sqrt_rn_normal, differs from __fsqrt_rn only on
-// infinite and NaN arguments).
+// A Term policy (derived from TermDefaults, whose defaults it overrides)
+// gives the lane term: Term::step(acc, q, e, s) adds lane l's term to acc
+// from the values at lane l of the query's kQ operand columns and of the
+// row's kE table columns (TransE: q, E[id]; RotatE: the re and im halves of
+// both; TransD: q, r_p, E[id]; TransH: q, w, E[id]) and one scalar s of the
+// pair that does not depend on the lane:
+//   - kIdScalar: s = id_scalar[id], read once per real pair (TransD's
+//     cdot[id]);
+//   - kDot >= 0: s = the sum over the lanes, in order, of Term::dot_step
+//     over the query's column kDot and the row's first column (TransH's
+//     w . E[id]), a first pass over the row that ends before the second
+//     pass's first lane;
+//   - otherwise s = 0 and the Term ignores it.
+// A Term with kRecompute takes a pair whose sum is not finite again, lane
+// by lane from device memory, with Term::exact_step (RotatE's square root,
+// sqrt_rn_normal, differs from __fsqrt_rn only on infinite and NaN
+// arguments).
 //
 // What bounds it on an H100: latency. At the serving window ([256, 192]
 // ids, 13-15% of them real, D = 200) the real pairs' distinct rows are
@@ -41,6 +51,11 @@
 //     kStages buffers, so kStages - 1 chunks are in flight while one is
 //     summed; 4-byte copies where the widths are no multiple of 4 or a view
 //     is not 16-byte aligned;
+//   - a Term with a first pass (kDot) keeps the slice's rows staged across
+//     both passes where they take at most kKeepChunks chunks: every chunk
+//     of every column copied at once, then both passes read shared memory;
+//     a wider row streams the ring twice, the first pass staging only the
+//     row and the query's column kDot;
 //   - rows are kLanes + 4 floats apart, an odd number of float4s, so the
 //     LDS.128s of 8 consecutive threads' rows fall in 8 bank groups; a
 //     thread reads its row and its query four lanes a load, the query as a
@@ -69,14 +84,26 @@ constexpr int kWarps = 1;    // warp slices per block
 constexpr int kLanes = 64;   // lanes per staged chunk
 constexpr int kStages = 2;   // chunk buffers per warp: a double buffer
 constexpr int kPitch = kLanes + 4;  // floats per staged row
+// A two-pass Term keeps its rows staged up to this many chunks (D <= 256):
+// one round of copies a slice instead of two rings of D / kLanes rounds
+// (PERF.md section 6; chip_smoke.py times the two rings beside it).
+constexpr int kKeepChunks = 4;
 static_assert(kPairs <= 32 && 32 % kPairs == 0, "pairs fill a warp's lanes");
 static_assert(kLanes % 4 == 0 && (kPitch / 4) % 2 == 1,
               "a staged row is an odd number of float4s");
 static_assert(kStages >= 2, "one chunk in flight while one is summed");
 
+// The defaults of a Term policy: no scalar, no first pass, no second sum.
+struct TermDefaults {
+  static constexpr bool kIdScalar = false;
+  static constexpr int kDot = -1;
+  static constexpr bool kRecompute = false;
+};
+
 // The operand columns of a Term: column o of query c starts at
 // q[o] + c * q_ld, column o of row id at table + id * e_ld + e_off[o]; each
-// is D lanes long.
+// is D lanes long. id_scalar [rows]: the per-id scalar of a Term with
+// kIdScalar (else unused).
 template <int NQ, int NE>
 struct Operands {
   const float* q[NQ];
@@ -84,6 +111,7 @@ struct Operands {
   const float* table;
   long long e_off[NE];
   long long e_ld;
+  const float* id_scalar;
 };
 
 // One copy of 16 or 4 bytes global -> shared.
@@ -103,18 +131,30 @@ inline int slice_queries(int K) {
   return n < kPairs ? n : kPairs;
 }
 
-// Shared memory of one warp: kPairs + q_rows row offsets, then kStages
-// chunk buffers of NE table columns x kPairs rows and NQ query columns x
-// q_rows rows.
+// Chunk buffers a warp of Term needs at width D: the ring's, or every chunk
+// where a two-pass Term keeps its rows.
+template <class T>
+__host__ __device__ inline int buffers(int D) {
+  const int chunks = (D + kLanes - 1) / kLanes;
+  return T::kDot >= 0 && chunks <= kKeepChunks && chunks > kStages ? chunks
+                                                                   : kStages;
+}
+
+// Shared memory of one warp: kPairs + q_rows row offsets, then nbuf chunk
+// buffers of NE table columns x kPairs rows and NQ query columns x q_rows
+// rows.
 template <int NQ, int NE>
 __host__ __device__ inline long long stage_floats(int q_rows) {
   return static_cast<long long>(NE * kPairs + NQ * q_rows) * kPitch;
 }
 
+__host__ __device__ inline long long offs_bytes(int q_rows) {
+  return ((kPairs + q_rows) * 8 + 15) / 16 * 16;
+}
+
 template <int NQ, int NE>
-__host__ __device__ inline long long warp_bytes(int q_rows) {
-  const long long offs = ((kPairs + q_rows) * 8 + 15) / 16 * 16;
-  return offs + kStages * stage_floats<NQ, NE>(q_rows) * 4;
+__host__ __device__ inline long long warp_bytes(int q_rows, int nbuf) {
+  return offs_bytes(q_rows) + nbuf * stage_floats<NQ, NE>(q_rows) * 4;
 }
 
 // Copy lanes [l0, l0 + ln) of the slice's real rows and of its nq query
@@ -166,45 +206,79 @@ __device__ __forceinline__ void stage_chunk(float* st,
   }
 }
 
+// The thread's staged rows in one chunk buffer: its row's NE columns, its
+// query's NQ columns.
+template <int NQ, int NE>
+struct Rows {
+  const float* e[NE];
+  const float* q[NQ];
+};
+
+template <int NQ, int NE>
+__device__ __forceinline__ Rows<NQ, NE> rows_in(const float* st, int row,
+                                                int cq, int q_rows) {
+  Rows<NQ, NE> r;
+#pragma unroll
+  for (int o = 0; o < NE; ++o) r.e[o] = st + (o * kPairs + row) * kPitch;
+#pragma unroll
+  for (int o = 0; o < NQ; ++o) {
+    r.q[o] = st + NE * kPairs * kPitch + (o * q_rows + cq) * kPitch;
+  }
+  return r;
+}
+
 // component u of v (u a constant once the loop over it is unrolled)
 __device__ __forceinline__ float part4(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-template <class Term, bool VEC>
-__global__ void __launch_bounds__(32 * kWarps)
-score_ids_kernel(Operands<Term::kQ, Term::kE> ops, const int* __restrict__ ids,
-                 float* __restrict__ out, long long n, int K, int D,
-                 int rows, int q_rows) {
-  constexpr int NQ = Term::kQ, NE = Term::kE;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long i0 =
-      (static_cast<long long>(blockIdx.x) * kWarps + warp) * kPairs;
-  if (i0 >= n) return;                       // uniform across the warp
-  const long long i = i0 + lane;
-  const bool mine = lane < kPairs && i < n;  // the thread owns pair i
-  const int id = mine ? ids[i] : -1;
-  const bool real = mine && id >= 0 && id < rows;
-  if (__ballot_sync(0xffffffffu, real) == 0) {
-    if (mine) out[i] = quiet_nan();
-    return;
+// acc after step(acc, q, e) over lanes 0 .. ln-1 of one staged chunk, in
+// order.
+template <int NQ, int NE, class Step>
+__device__ __forceinline__ float sum_chunk(float acc, const Rows<NQ, NE>& r,
+                                           int ln, Step step) {
+  int l = 0;
+  for (; l + 4 <= ln; l += 4) {
+    float4 e4[NE], q4[NQ];
+#pragma unroll
+    for (int o = 0; o < NE; ++o) {
+      e4[o] = *reinterpret_cast<const float4*>(r.e[o] + l);
+    }
+#pragma unroll
+    for (int o = 0; o < NQ; ++o) {
+      q4[o] = *reinterpret_cast<const float4*>(r.q[o] + l);
+    }
+    // lanes l, l+1, l+2, l+3 in order: the plain version's sum order
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float ev[NE], qv[NQ];
+#pragma unroll
+      for (int o = 0; o < NE; ++o) ev[o] = part4(e4[o], u);
+#pragma unroll
+      for (int o = 0; o < NQ; ++o) qv[o] = part4(q4[o], u);
+      acc = step(acc, qv, ev);
+    }
   }
+  for (; l < ln; ++l) {  // the lanes past the last multiple of 4
+    float ev[NE], qv[NQ];
+#pragma unroll
+    for (int o = 0; o < NE; ++o) ev[o] = r.e[o][l];
+#pragma unroll
+    for (int o = 0; o < NQ; ++o) qv[o] = r.q[o][l];
+    acc = step(acc, qv, ev);
+  }
+  return acc;
+}
 
-  unsigned char* base = smem + warp * warp_bytes<NQ, NE>(q_rows);
-  long long* off = reinterpret_cast<long long*>(base);
-  float* stages = reinterpret_cast<float*>(
-      base + ((kPairs + q_rows) * 8 + 15) / 16 * 16);
+// The lane sum of the thread's pair over the D lanes of ops' columns,
+// streamed through the ring of kStages chunk buffers at stages; returns with
+// no copy of this thread in flight.
+template <bool VEC, int NQ, int NE, class Step>
+__device__ __forceinline__ float sweep(float* stages, const long long* off,
+                                       const Operands<NQ, NE>& ops,
+                                       int q_rows, int nq, int row, int cq,
+                                       int D, int lane, Step step) {
   const long long sf = stage_floats<NQ, NE>(q_rows);
-  const long long c_first = i0 / K;
-  const long long last = (i0 + kPairs < n ? i0 + kPairs : n) - 1;
-  const int nq = static_cast<int>(last / K - c_first + 1);  // <= q_rows
-  if (lane < kPairs) off[lane] = real ? id * ops.e_ld : -1;
-  if (lane < nq) off[kPairs + lane] = (c_first + lane) * ops.q_ld;
-  __syncwarp();
-
-  const int row = lane < kPairs ? lane : 0;  // the thread's staged row
-  const int cq = mine ? static_cast<int>(i / K - c_first) : 0;
   const int chunks = (D + kLanes - 1) / kLanes;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -227,48 +301,119 @@ score_ids_kernel(Operands<Term::kQ, Term::kE> ops, const int* __restrict__ ids,
                                min(kLanes, D - nxt * kLanes), lane);
     }
     cp_async_commit();
-    const float* st = stages + (ch % kStages) * sf;
-    const float* er[NE];
-    const float* qr[NQ];
-#pragma unroll
-    for (int o = 0; o < NE; ++o) er[o] = st + (o * kPairs + row) * kPitch;
-#pragma unroll
-    for (int o = 0; o < NQ; ++o) {
-      qr[o] = st + NE * kPairs * kPitch + (o * q_rows + cq) * kPitch;
-    }
-    const int ln = min(kLanes, D - ch * kLanes);
-    int l = 0;
-    for (; l + 4 <= ln; l += 4) {
-      float4 e4[NE], q4[NQ];
-#pragma unroll
-      for (int o = 0; o < NE; ++o) {
-        e4[o] = *reinterpret_cast<const float4*>(er[o] + l);
-      }
-#pragma unroll
-      for (int o = 0; o < NQ; ++o) {
-        q4[o] = *reinterpret_cast<const float4*>(qr[o] + l);
-      }
-      // lanes l, l+1, l+2, l+3 in order: the plain version's sum order
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float ev[NE], qv[NQ];
-#pragma unroll
-        for (int o = 0; o < NE; ++o) ev[o] = part4(e4[o], u);
-#pragma unroll
-        for (int o = 0; o < NQ; ++o) qv[o] = part4(q4[o], u);
-        acc = Term::step(acc, qv, ev);
-      }
-    }
-    for (; l < ln; ++l) {  // the lanes past the last multiple of 4
-      float ev[NE], qv[NQ];
-#pragma unroll
-      for (int o = 0; o < NE; ++o) ev[o] = er[o][l];
-#pragma unroll
-      for (int o = 0; o < NQ; ++o) qv[o] = qr[o][l];
-      acc = Term::step(acc, qv, ev);
-    }
+    acc = sum_chunk(acc,
+                    rows_in<NQ, NE>(stages + (ch % kStages) * sf, row, cq,
+                                    q_rows),
+                    min(kLanes, D - ch * kLanes), step);
   }
-  cp_async_wait<0>();  // no copy outlives the warp
+  cp_async_wait<0>();  // no copy outlives the sweep
+  return acc;
+}
+
+// The two passes of a Term with kDot: the pair's dot, then the lane sum
+// with the dot as its scalar.
+template <class Term, bool VEC>
+__device__ __forceinline__ float two_passes(
+    float* stages, const long long* off,
+    const Operands<Term::kQ, Term::kE>& ops, int q_rows, int nq, int row,
+    int cq, int D, int lane) {
+  constexpr int NQ = Term::kQ, NE = Term::kE;
+  const auto dot_step = [](float dot, const float (&q)[1],
+                           const float (&e)[1]) {
+    return Term::dot_step(dot, q[0], e[0]);
+  };
+  const int chunks = (D + kLanes - 1) / kLanes;
+  if (chunks > kKeepChunks) {
+    // the ring twice: the first pass stages the row and column kDot only
+    const Operands<1, 1> first{{ops.q[Term::kDot]}, ops.q_ld, ops.table,
+                               {ops.e_off[0]}, ops.e_ld, nullptr};
+    const float dot = sweep<VEC>(stages, off, first, q_rows, nq, row, cq, D,
+                                 lane, dot_step);
+    __syncwarp();  // every thread has summed the last chunk: the buffers
+                   // may be refilled
+    return sweep<VEC>(stages, off, ops, q_rows, nq, row, cq, D, lane,
+                      [dot](float acc, const float (&q)[NQ],
+                            const float (&e)[NE]) {
+                        return Term::step(acc, q, e, dot);
+                      });
+  }
+  // every chunk of every column staged once, read by both passes
+  const long long sf = stage_floats<NQ, NE>(q_rows);
+  for (int ch = 0; ch < chunks; ++ch) {
+    stage_chunk<NQ, NE, VEC>(stages + ch * sf, off, ops, q_rows, nq,
+                             ch * kLanes, min(kLanes, D - ch * kLanes), lane);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  float dot = 0.0f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const Rows<NQ, NE> r = rows_in<NQ, NE>(stages + ch * sf, row, cq, q_rows);
+    dot = sum_chunk(dot, Rows<1, 1>{{r.e[0]}, {r.q[Term::kDot]}},
+                    min(kLanes, D - ch * kLanes), dot_step);
+  }
+  float acc = 0.0f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    acc = sum_chunk(acc, rows_in<NQ, NE>(stages + ch * sf, row, cq, q_rows),
+                    min(kLanes, D - ch * kLanes),
+                    [dot](float a, const float (&q)[NQ],
+                          const float (&e)[NE]) {
+                      return Term::step(a, q, e, dot);
+                    });
+  }
+  return acc;
+}
+
+template <class Term, bool VEC>
+__global__ void __launch_bounds__(32 * kWarps)
+score_ids_kernel(Operands<Term::kQ, Term::kE> ops, const int* __restrict__ ids,
+                 float* __restrict__ out, long long n, int K, int D,
+                 int rows, int q_rows) {
+  constexpr int NQ = Term::kQ, NE = Term::kE;
+  static_assert(!Term::kRecompute || (!Term::kIdScalar && Term::kDot < 0),
+                "exact_step takes no scalar");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kWarps + warp) * kPairs;
+  if (i0 >= n) return;                       // uniform across the warp
+  const long long i = i0 + lane;
+  const bool mine = lane < kPairs && i < n;  // the thread owns pair i
+  const int id = mine ? ids[i] : -1;
+  const bool real = mine && id >= 0 && id < rows;
+  if (__ballot_sync(0xffffffffu, real) == 0) {
+    if (mine) out[i] = quiet_nan();
+    return;
+  }
+
+  unsigned char* base =
+      smem + warp * warp_bytes<NQ, NE>(q_rows, buffers<Term>(D));
+  long long* off = reinterpret_cast<long long*>(base);
+  float* stages = reinterpret_cast<float*>(base + offs_bytes(q_rows));
+  const long long c_first = i0 / K;
+  const long long last = (i0 + kPairs < n ? i0 + kPairs : n) - 1;
+  const int nq = static_cast<int>(last / K - c_first + 1);  // <= q_rows
+  float s = 0.0f;  // the pair's per-id scalar, read for a real id only
+  if constexpr (Term::kIdScalar) {
+    if (real) s = ops.id_scalar[id];
+  }
+  if (lane < kPairs) off[lane] = real ? id * ops.e_ld : -1;
+  if (lane < nq) off[kPairs + lane] = (c_first + lane) * ops.q_ld;
+  __syncwarp();
+
+  const int row = lane < kPairs ? lane : 0;  // the thread's staged row
+  const int cq = mine ? static_cast<int>(i / K - c_first) : 0;
+  float acc;
+  if constexpr (Term::kDot >= 0) {
+    acc = two_passes<Term, VEC>(stages, off, ops, q_rows, nq, row, cq, D,
+                                lane);
+  } else {
+    acc = sweep<VEC>(stages, off, ops, q_rows, nq, row, cq, D, lane,
+                     [s](float a, const float (&q)[NQ],
+                         const float (&e)[NE]) {
+                       return Term::step(a, q, e, s);
+                     });
+  }
 
   if constexpr (Term::kRecompute) {
     if (real && !isfinite(acc)) {
@@ -307,15 +452,18 @@ template <class Term, bool VEC>
 cudaError_t launch_as(const Operands<Term::kQ, Term::kE>& ops,
                       const int* ids, float* out, long long n, int K, int D,
                       int rows, cudaStream_t s) {
+  constexpr int NQ = Term::kQ, NE = Term::kE;
   const int q_rows = slice_queries(K);
   const long long bytes =
-      kWarps * warp_bytes<Term::kQ, Term::kE>(q_rows);
+      kWarps * warp_bytes<NQ, NE>(q_rows, buffers<Term>(D));
   // above 48 KB only after the opt-in, once per instantiation at the most
-  // any launch can ask for (q_rows = kPairs)
+  // any launch can ask for (q_rows = kPairs, the most buffers)
+  constexpr int kMostBuffers =
+      Term::kDot >= 0 && kKeepChunks > kStages ? kKeepChunks : kStages;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       score_ids_kernel<Term, VEC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kWarps * warp_bytes<Term::kQ, Term::kE>(kPairs)));
+      static_cast<int>(kWarps * warp_bytes<NQ, NE>(kPairs, kMostBuffers)));
   if (opt_in != cudaSuccess) return opt_in;
   const long long slices = (n + kPairs - 1) / kPairs;
   const unsigned blocks =
