@@ -6,9 +6,12 @@ as the reference writes them, so exports pass between the two packages.
 Training checkpoints (:class:`CheckpointManager`) are numbered ``step_N/``
 directories, as in the reference, each holding a torch state dict of the
 tables, the optimizer state and the global step (``state.pt``) and a JSON
-manifest. The reference's orbax ``step_N`` checkpoints need jax to read
-and are refused; the port evaluates from an export (``cli.train`` writes
-one every run) or from its own ``torch.save`` file (:func:`save_params`)."""
+manifest. The incremental mode's warm start (:func:`warm_start_path`,
+:func:`warm_start_from`) carries one batch folder's checkpoint into the
+next batch's possibly larger state. The reference's orbax ``step_N``
+checkpoints need jax to read and are refused; the port evaluates from an
+export (``cli.train`` writes one every run) or from its own
+``torch.save`` file (:func:`save_params`)."""
 
 from __future__ import annotations
 
@@ -217,6 +220,81 @@ class CheckpointManager:
         steps = sorted(all_steps(self.directory))
         for s in steps[:-self.keep] if self.keep else []:
             shutil.rmtree(self._path(s), ignore_errors=True)
+
+
+def warm_start_path(out_path: str, batch_number: Optional[int]
+                    ) -> Optional[str]:
+    """Incremental mode: training on batch folder *n* warm-starts from
+    batch *n − 1*'s output directory when it holds a checkpoint (the
+    reference's ``ckpt/checkpoint.py:170-176``)."""
+    if batch_number is None or batch_number <= 0:
+        return None
+    prev = os.path.join(out_path, str(batch_number - 1))
+    return prev if latest_step(prev) is not None else None
+
+
+def checkpoint_vocabulary(raw: dict, manifest: dict, model, cfg: Config
+                          ) -> Tuple[int, int]:
+    """(n_ent, n_rel) of a stored checkpoint: the manifest's, which
+    ``cli.train`` and the training loop write into every checkpoint, else
+    the stored tables' rows less the one pad row the port appends (a
+    manifest written before the loop recorded them)."""
+    if "n_ent" in manifest and "n_rel" in manifest:
+        return int(manifest["n_ent"]), int(manifest["n_rel"])
+    rows = {"ent": [], "rel": []}
+    for name, spec in model.tables(cfg, 0, 0).items():
+        if name not in raw["params"]:
+            raise ValueError(f"checkpoint lacks table {name!r} for model "
+                             f"{model.name!r}")
+        rows[spec.kind].append(raw["params"][name].shape[0] - 1)
+    return min(rows["ent"]), min(rows["rel"])
+
+
+def warm_start_from(new_state, ckpt_dir: str, model, cfg: Config):
+    """Incremental-mode warm start (the reference's
+    ``ckpt/checkpoint.py:179-216``): the previous batch's latest
+    checkpoint copied into ``new_state``, a fresh state for this batch's
+    vocabulary, which may be larger. Only the old *logical* rows are
+    copied, so new entities and relations keep their fresh init; the
+    optimizer slots are carried the same way, and the global step is the
+    checkpoint's. Returns (state, the checkpoint's manifest)."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+    state_file = os.path.join(path, STATE_NAME)
+    if not os.path.exists(state_file):
+        raise ValueError(f"{path} holds no {STATE_NAME}: not a checkpoint "
+                         "of the port")
+    raw = torch.load(state_file, map_location="cpu", weights_only=True)
+    manifest = {}
+    mpath = os.path.join(path, MANIFEST_NAME)
+    if os.path.exists(mpath):
+        with open(mpath) as f:
+            manifest = json.load(f)
+    old_n_ent, old_n_rel = checkpoint_vocabulary(raw, manifest, model, cfg)
+    specs = model.tables(cfg, old_n_ent, old_n_rel)
+
+    def copy_rows(new_tree, old_tree):
+        out = dict(new_tree)
+        for name, spec in specs.items():
+            if name in new_tree and name in old_tree:
+                new, old = new_tree[name], old_tree[name]
+                if old.shape[0] < spec.rows or old.shape[1:] != new.shape[1:]:
+                    raise ValueError(
+                        f"checkpoint table {name!r} has shape "
+                        f"{tuple(old.shape)}, expected {spec.rows} logical "
+                        f"rows of width {tuple(new.shape[1:])}")
+                n = min(spec.rows, new.shape[0])
+                out[name] = new.clone()
+                out[name][:n] = old[:n].to(new.device, new.dtype)
+        return out
+
+    params = copy_rows(new_state.params, raw["params"])
+    opt_state = {s: copy_rows(slots, raw["opt_state"].get(s, {}))
+                 for s, slots in new_state.opt_state.items()}
+    return (type(new_state)(params=params, opt_state=opt_state,
+                            step=int(raw["step"])), manifest)
 
 
 def all_steps(directory: str) -> List[int]:

@@ -13,10 +13,12 @@ Usage:
         --link_prediction --triple_classification
     python -m openkeonspark_tpu_torch.cli.evaluate ... --predict_tail 123,7
 
-Models: transe, transh, transd, rotate, and transr (``--ent_size`` /
-``--rel_size``); the ``--predict_*`` queries cover all but transr. TransH
-ranks relation by relation through the TransE count kernel, or, with
-``OKST_EVAL_TRANSH_KERNEL=1``, chunk by chunk through its own kernel.
+Models: transe, transh, transd, rotate, distmult, complex, and transr
+(``--ent_size`` / ``--rel_size``), each with the ``--predict_*``
+queries. TransH ranks relation by relation through the TransE count
+kernel, or, with ``OKST_EVAL_TRANSH_KERNEL=1``, chunk by chunk through its
+own kernel; DistMult and ComplEx rank through one full-fp32 matrix
+product per query chunk.
 """
 
 from __future__ import annotations
@@ -30,8 +32,7 @@ from openkeonspark_tpu_torch.data.dataset import load_dataset
 from openkeonspark_tpu_torch.data.index import build_kg_index
 from openkeonspark_tpu_torch.ckpt import params_from_numpy, read_parameters
 from openkeonspark_tpu_torch.models.base import get_model
-from openkeonspark_tpu_torch.runtime import (check_predict_supported,
-                                             check_supported, resolve_device)
+from openkeonspark_tpu_torch.runtime import check_supported, resolve_device
 
 
 def main(argv=None):
@@ -51,8 +52,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = config_from_args(args)
     check_supported(cfg)
-    if args.predict_tail or args.predict_head or args.predict_rel:
-        check_predict_supported(cfg)
     device = resolve_device(args.device)
 
     ds = load_dataset(cfg.in_path)

@@ -4,12 +4,14 @@ optionally evaluate.
 
 Same flags and printout as ``openkeonspark_tpu.cli.train``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
-Models: transe, transh, transd and rotate (generic step) and transr (the
-relation-grouped step with entity negatives only, the generic step with
-``--negative_rel > 0``; CUDA kernels on the card). Optimizers: sgd and
-the lazy adam, adagrad and adadelta. Options the port does not cover yet
-(meshes and coordinators, ``--sampler host``, ``--batch_number``,
-``--type_constrain``, ``--trace_dir``, ``--exchange_hot_rows``) raise
+Models: transe, transh, transd, rotate, distmult and complex (generic
+step) and transr (the relation-grouped step with entity negatives only,
+the generic step with ``--negative_rel > 0``; CUDA kernels on the card).
+Optimizers: sgd and the lazy adam, adagrad and adadelta. ``--trace_dir``
+writes a ``torch.profiler`` Chrome trace of the second epoch
+(``train/loop.py``). Options the port does not cover yet (meshes and
+coordinators, ``--sampler host``, ``--type_constrain``,
+``--exchange_hot_rows``, ``--dtype`` other than float32) raise
 ``NotPortedError``.
 
 Usage:
@@ -17,6 +19,14 @@ Usage:
         --model transr --ent_size 200 --rel_size 100 --alpha 0.01 \\
         --nbatches 100 --train_times 50 --valid_every 5 \\
         --test_link_prediction --device cuda
+
+Incremental mode (the reference's batch folders ``<input>/0/ 1/ …``):
+    python -m openkeonspark_tpu_torch.cli.train --input data/KG \\
+        --output out/KG --batch_number 2 …
+    trains on data/KG/2/, writes out/KG/2/ and warm-starts from
+    out/KG/1/'s latest checkpoint (new entities and relations keep their
+    fresh init; the global step, and with it the random stream, goes on
+    from batch 1's).
 """
 
 from __future__ import annotations
@@ -31,7 +41,8 @@ from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.data.dataset import load_dataset
 from openkeonspark_tpu_torch.data.index import build_kg_index
 from openkeonspark_tpu_torch.ckpt import (CheckpointManager,
-                                          export_parameters, latest_step)
+                                          export_parameters, latest_step,
+                                          warm_start_from, warm_start_path)
 from openkeonspark_tpu_torch.models.base import get_model
 from openkeonspark_tpu_torch.runtime import check_supported, resolve_device
 from openkeonspark_tpu_torch.train.loop import train
@@ -46,8 +57,11 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
     check_train_supported(cfg)
     if cfg.test_link_prediction or cfg.test_triple_classification:
         check_supported(cfg)
-    out_dir = cfg.out_path
-    ds = load_dataset(cfg.in_path)
+    data_dir, out_dir = cfg.in_path, cfg.out_path
+    if cfg.batch_number is not None:
+        data_dir = os.path.join(cfg.in_path, str(cfg.batch_number))
+        out_dir = os.path.join(cfg.out_path, str(cfg.batch_number))
+    ds = load_dataset(data_dir)
     echo(f"dataset: {ds.n_ent} entities, {ds.n_rel} relations, "
          f"{ds.n_train} train / {ds.n_valid} valid / {ds.n_test} test")
     model = get_model(cfg.model)
@@ -58,17 +72,24 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
 
     # crash recovery: a checkpoint in this run's output dir is resumed,
     # and only the remaining epochs run; the data order replays exactly
-    # (group generators derive from the restored global step)
+    # (group generators derive from the restored global step). An
+    # incremental batch counts its epochs from the step it warm-started
+    # at, since the global step carries across batches.
+    prev = warm_start_path(cfg.out_path, cfg.batch_number)
     ls = latest_step(out_dir) if out_dir else None
     if ls is not None:
         logical = {n: s.rows for n, s in
                    model.tables(cfg, ds.n_ent, ds.n_rel).items()}
         state, _ = CheckpointManager(out_dir).restore(
             state, step=ls, logical_rows=logical)
-        done = state.step // max(cfg.nbatches, 1)
+        base = (latest_step(prev) or 0) if prev else 0
+        done = max(0, state.step - base) // max(cfg.nbatches, 1)
         cfg = cfg.replace(train_times=max(0, cfg.train_times - done))
         echo(f"resumed from {out_dir} step {state.step} "
              f"({done} epochs done, {cfg.train_times} remaining)")
+    elif prev:
+        state, _ = warm_start_from(state, prev, model, cfg)
+        echo(f"warm start from {prev} (step {state.step})")
 
     result = train(cfg, ds, device, index=index, state=state,
                    checkpoint_dir=out_dir, echo=echo)

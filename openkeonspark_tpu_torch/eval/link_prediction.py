@@ -2,8 +2,8 @@
 head / tail / averaged.
 
 Counterpart of ``openkeonspark_tpu/eval/link_prediction.py`` (``:50-110``,
-``:212-258``, ``:295-431``, ``:491-644``) for TransE, TransH, TransR, TransD
-and RotatE. The rank of the gold entity is ``1 + #{candidates scoring
+``:143-199``, ``:212-258``, ``:295-431``, ``:491-644``) for all seven
+models. The rank of the gold entity is ``1 + #{candidates scoring
 strictly better}``: a chunk of test triples is counted against the whole
 entity table in one fused pass by the model's count kernel
 (``ops/rank.py``: B1 TransE, B6 TransH, B2 TransD, B3 RotatE; CUDA on the
@@ -22,7 +22,19 @@ are sorted by relation into single-relation chunks, the entity table is
 projected once per chunk (``E @ M_ρ``, or ``E − (E·ŵ_ρ)ŵ_ρ``) and B1
 sweeps the projected table, gold and known-true scores coming from the
 same projected table. ``OKST_EVAL_TRANSH_KERNEL=1`` sends TransH chunk by
-chunk through B6 instead, as the reference's switch does."""
+chunk through B6 instead, as the reference's switch does.
+
+DistMult and ComplEx have no count kernel in either package (the JAX
+package ranks them on its generic path, ``_rank_scan``): their scores are
+one full-fp32 product per query chunk and direction, ``S = −(q @ Eᵀ)``
+(:func:`_bilinear_scorers`), and the gold and known-true scores are
+gathered from the same ``S``, so the subtraction is tie-exact here too
+(the JAX package scores the known-true ids elementwise through
+``score_triples``; the two can differ only on near-ties). Ids ≥ n_ent are
+masked out of the count: the zero pad rows score 0, which beats any gold
+of positive dot product. ``S`` is held to :data:`BILINEAR_SWEEP_ELEMS`
+elements: a larger entity table is swept in blocks of rows, twice (the
+gold and known-true scores first, then the count)."""
 
 from __future__ import annotations
 
@@ -36,10 +48,16 @@ import torch
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.data.dataset import Dataset, H, R, T
 from openkeonspark_tpu_torch.data.index import KGIndex
+from openkeonspark_tpu_torch.eval.scoring import BILINEAR, build_queries
 from openkeonspark_tpu_torch.models.transh import unit
 from openkeonspark_tpu_torch.ops import rank as rank_ops
 from openkeonspark_tpu_torch.runtime import (check_supported, eval_chunk_size,
                                              full_fp32_matmul)
+
+
+# elements of one bilinear score block [C, rows]: 256 queries against
+# 65,536 entities (64 MiB of fp32); FB15K-237's 14,541 take one block
+BILINEAR_SWEEP_ELEMS = 1 << 24
 
 
 @dataclass
@@ -157,11 +175,63 @@ def _count_chunk(count, scores, gold_ids: torch.Tensor, known: torch.Tensor,
     return raw, raw - known_better
 
 
+def _bilinear_scorers(q: torch.Tensor, table: torch.Tensor, n_ent: int):
+    """(count, scores) of one query chunk of DistMult or ComplEx, with the
+    signatures of :func:`_scorers`: candidate scores are ``S = −(q @
+    tableᵀ)``, in full fp32, in blocks of rows that keep ``S`` under
+    :data:`BILINEAR_SWEEP_ELEMS` elements. The id scorer gathers from
+    ``S`` (NaN for an id outside [0, rows), unread); the count compares
+    ``S`` with the gold scores, ids ≥ n_ent masked. One block is computed
+    once and kept for both; more are computed again for the count."""
+    C, rows = q.shape[0], table.shape[0]
+    block = max(1, BILINEAR_SWEEP_ELEMS // max(C, 1))
+    starts = range(0, rows, block)
+    kept = {}
+
+    def sweep(c0):
+        if c0 in kept:
+            return kept[c0]
+        with full_fp32_matmul():
+            S = -(q @ table[c0:c0 + block].T)
+        if len(starts) == 1:
+            kept[c0] = S
+        return S
+
+    def scores(ids):
+        flat = ids.reshape(C, -1).long()
+        out = torch.full(flat.shape, float("nan"), dtype=q.dtype,
+                         device=q.device)
+        for c0 in starts:
+            S = sweep(c0)
+            local = flat - c0
+            inside = (local >= 0) & (local < S.shape[1])
+            got = S.gather(1, local.clamp(0, S.shape[1] - 1))
+            out = torch.where(inside, got, out)
+        return out.view(ids.shape)
+
+    def count(gold, gold_ids):
+        raw = torch.zeros(C, dtype=torch.int32, device=q.device)
+        for c0 in starts:
+            S = sweep(c0)
+            ids = torch.arange(c0, c0 + S.shape[1], device=q.device)
+            raw += ((S < gold[:, None]) & (ids < n_ent)[None]).sum(
+                1, dtype=torch.int32)
+        return raw
+
+    return count, scores
+
+
 def _chunk_scorers(cfg: Config, params, cdot, h, t, r, replace: str,
                    n_ent: int, plain: bool):
     """The queries of a chunk of test triples and their scorers, by model:
-    the JAX package's ``_rank_chunk_kernel`` (``link_prediction.py:212-258``).
-    ``cdot`` is TransD's per-entity dot (None otherwise)."""
+    the JAX package's ``_rank_chunk_kernel`` (``link_prediction.py:212-258``)
+    and, for DistMult and ComplEx, its ``_rank_chunk`` (``:143-199``; no
+    kernel, so ``plain`` changes nothing there). ``cdot`` is TransD's
+    per-entity dot (None otherwise)."""
+    if cfg.model in BILINEAR:
+        q = build_queries(params, h.long(), t.long(), r.long(), replace,
+                          cfg)["q"]
+        return _bilinear_scorers(q, params["ent_embeddings"], n_ent)
     ops, sign = rank_ops.model_queries(cfg.model, params, cdot, h.long(),
                                        t.long(), r.long(), replace)
     return _scorers(cfg.model, ops, sign, cfg.p_norm, n_ent, plain)
@@ -252,7 +322,8 @@ def _chunked_link_prediction(params, cfg: Config, ds: Dataset,
                              triples: np.ndarray, offs, k_max: int, vals_t,
                              vals_h, plain: bool, log=None):
     """Ranks chunk by chunk in the order of ``triples``, each chunk swept
-    over the whole entity table by the model's count kernel."""
+    over the whole entity table by the model's count kernel (DistMult and
+    ComplEx: by one matrix product, :func:`_bilinear_scorers`)."""
     dev = params["ent_embeddings"].device
     rows = params["ent_embeddings"].shape[0]
     # TransD's per-entity dot, once per evaluation and shared by every

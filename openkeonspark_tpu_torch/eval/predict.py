@@ -1,9 +1,11 @@
 """Ad-hoc top-k prediction — the reference's "serving" path.
 
-Counterpart of ``openkeonspark_tpu/eval/predict.py``: every candidate
-entity is scored with the blocked scorer of ``eval/scoring.py`` and the k
-best (lowest score) are taken with ``torch.topk`` over the scores of ids
-< n_ent."""
+Counterpart of ``openkeonspark_tpu/eval/predict.py``: the query is built
+once (``eval/scoring.py::build_queries``; TransR's anchor projected
+through M_ρ), every candidate entity is scored block by block
+(``score_block``; TransR's blocks projected through M_ρ, so the whole
+table once a query) and the k best (lowest score) are taken with
+``torch.topk`` over the scores of ids < n_ent."""
 
 from __future__ import annotations
 
@@ -15,9 +17,10 @@ import torch
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.eval.classification import (Thresholds,
                                                          score_triples)
-from openkeonspark_tpu_torch.eval.scoring import candidate_scores
+from openkeonspark_tpu_torch.eval.scoring import (CANDIDATE_TABLES,
+                                                  build_queries, score_block)
 from openkeonspark_tpu_torch.models import get_model
-from openkeonspark_tpu_torch.runtime import check_predict_supported
+from openkeonspark_tpu_torch.runtime import check_supported
 
 
 @torch.no_grad()
@@ -26,10 +29,12 @@ def _topk_entities(params: Dict[str, torch.Tensor], cfg: Config, n_ent: int,
                    k: int) -> Tuple[np.ndarray, np.ndarray]:
     dev = params["ent_embeddings"].device
     ids = lambda x: torch.tensor([x], dtype=torch.long, device=dev)  # noqa: E731
+    q = build_queries(params, ids(h), ids(t), ids(r), replace, cfg)
     block = cfg.eval_block
     scores = torch.cat([
-        candidate_scores(params, ids(h), ids(t), ids(r), c0, block, replace,
-                         cfg)[0]
+        score_block(q, {name: params[name][c0:c0 + block]
+                        for name in CANDIDATE_TABLES[cfg.model]},
+                    replace, cfg)[0]
         for c0 in range(0, n_ent, block)])[:n_ent]
     best, idx = torch.topk(scores, min(k, n_ent), largest=False)
     return idx.to(torch.int32).cpu().numpy(), best.cpu().numpy()
@@ -53,7 +58,7 @@ def predict_relation(params, cfg: Config, n_ent: int, n_rel: int,
                      h: int, t: int, k: int = 10
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k relations for (h, ?, t): every relation id scored directly."""
-    check_predict_supported(cfg)
+    check_supported(cfg)
     trip = np.stack([np.full(n_rel, h), np.full(n_rel, t),
                      np.arange(n_rel)], axis=1)
     scores = score_triples(params, cfg, n_ent, n_rel, trip)
@@ -69,7 +74,7 @@ def predict_triple(params, cfg: Config, h: int, t: int, r: int,
     explicit scalar threshold. The scorer's entity and relation counts
     are read from the tables (:func:`_table_counts`); the score does not
     depend on them."""
-    check_predict_supported(cfg)
+    check_supported(cfg)
     n_ent, n_rel = _table_counts(params, cfg)
     score = float(score_triples(params, cfg, n_ent, n_rel,
                                 np.array([[h, t, r]]))[0])

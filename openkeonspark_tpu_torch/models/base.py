@@ -134,7 +134,8 @@ def register(model_cls: type) -> type:
 
 
 def get_model(name: str) -> type:
-    from openkeonspark_tpu_torch.models import (rotate, transd,  # noqa: F401
+    from openkeonspark_tpu_torch.models import (complexe,  # noqa: F401
+                                                distmult, rotate, transd,
                                                 transe, transh, transr)
     check_model_ported(name)
     return _REGISTRY[name]

@@ -16,11 +16,11 @@ from openkeonspark_tpu_torch.config import Config
 # is not called: it imports jax and caps chunks for the TPU's VMEM.
 DEFAULT_EVAL_CHUNK = 256
 
-# the models the port evaluates and trains: get_model, check_supported and
+# the models the port evaluates, trains and answers predict_* queries for
+# (all seven of the JAX package): get_model, check_supported and
 # check_train_supported refuse any other, naming these
-PORTED_MODELS = ("transe", "transh", "transr", "transd", "rotate")
-# the top-k predict_* queries: TransR's candidate scorer is not ported
-PREDICT_MODELS = ("transe", "transh", "transd", "rotate")
+PORTED_MODELS = ("transe", "transh", "transr", "transd", "distmult",
+                 "complex", "rotate")
 
 
 class NotPortedError(NotImplementedError):
@@ -45,8 +45,9 @@ def eval_chunk_size(cfg: Config) -> int:
 def check_model_ported(name: str) -> None:
     if name not in PORTED_MODELS:
         raise NotPortedError(
-            f"model {name!r} is not yet ported to openkeonspark_tpu_torch "
-            f"(only {', '.join(PORTED_MODELS)}); see ROADMAP.md queue A")
+            f"model {name!r} is not one of the models ported to "
+            f"openkeonspark_tpu_torch ({', '.join(PORTED_MODELS)}); "
+            "see ROADMAP.md queue A")
 
 
 def check_supported(cfg: Config) -> None:
@@ -66,15 +67,6 @@ def check_supported(cfg: Config) -> None:
         raise NotPortedError(
             f"eval_dtype {cfg.eval_dtype!r} is not yet ported (the port "
             "scores in float32); see ROADMAP.md queue A")
-
-
-def check_predict_supported(cfg: Config) -> None:
-    """The top-k ``predict_*`` queries cover :data:`PREDICT_MODELS`."""
-    check_supported(cfg)
-    if cfg.model not in PREDICT_MODELS:
-        raise NotPortedError(
-            f"predict_* for model {cfg.model!r} is not yet ported (only "
-            f"{', '.join(PREDICT_MODELS)}); see ROADMAP.md queue A")
 
 
 @contextlib.contextmanager

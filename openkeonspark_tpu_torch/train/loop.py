@@ -10,8 +10,15 @@ contract of the JAX package's step-derived keys, ``loop.py:165-171``).
 
 The meter reports positive triples consumed per second over a clock read
 after ``torch.cuda.synchronize()`` (on a card), so it times the device
-work and not its enqueueing. Not ported: the host sampler, ``trace_dir``
-and ``exchange_hot_rows`` (refused by ``check_train_supported``)."""
+work and not its enqueueing. ``cfg.trace_dir`` records the second epoch
+(epoch 1; the first carries the warm-up) with ``torch.profiler``, CPU and
+CUDA activities on a card, the CPU alone on the CPU, and writes it as a
+Chrome trace, ``epoch1.pt.trace.json``, into ``trace_dir``: the analog of
+the JAX package's ``jax.profiler`` trace (``loop.py:175-206``). Every
+checkpoint's manifest records the vocabulary sizes (``n_ent``,
+``n_rel``), so an incremental warm start can read them from any step.
+Not ported: the host sampler and ``exchange_hot_rows`` (refused by
+``check_train_supported``)."""
 
 from __future__ import annotations
 
@@ -96,6 +103,19 @@ def _clock(device: torch.device) -> float:
     return time.perf_counter()
 
 
+TRACE_NAME = "epoch1.pt.trace.json"
+
+
+def _start_trace(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
 def train(cfg: Config, ds: Dataset, device: torch.device,
           index: Optional[KGIndex] = None,
           state: Optional[TrainState] = None,
@@ -149,8 +169,12 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
     log = _Logger(cfg, echo)
     result = TrainResult(state=state)
     best_acc, best_epoch, bad_checks = -np.inf, None, 0
+    vocab = {"n_ent": ds.n_ent, "n_rel": ds.n_rel}
+    prof = None
     try:
         for epoch in range(cfg.train_times):
+            if cfg.trace_dir and epoch == 1:
+                prof = _start_trace(device)
             t0 = _clock(device)
             losses, weights = [], []
             for run, size in groups:
@@ -161,7 +185,15 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
             # group means weighted to the epoch mean over nbatches steps
             mean_loss = float(np.average(
                 torch.stack(losses).cpu().numpy(), weights=weights))
-            dt = _clock(device) - t0
+            dt = _clock(device) - t0      # synchronizes a card
+            if prof is not None:
+                prof.stop()
+                os.makedirs(cfg.trace_dir, exist_ok=True)
+                path = os.path.join(cfg.trace_dir, TRACE_NAME)
+                prof.export_chrome_trace(path)
+                prof = None
+                log({"event": "trace_written", "dir": cfg.trace_dir,
+                     "file": path})
             tps = cfg.nbatches * batch_size / dt
             stats = EpochStats(epoch=epoch, loss=mean_loss, seconds=dt,
                                triples_per_sec=tps)
@@ -175,7 +207,7 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
                     if ckpt is not None:
                         ckpt.save(state.step, state,
                                   extra={"valid_accuracy": acc,
-                                         "epoch": epoch})
+                                         "epoch": epoch, **vocab})
                 else:
                     bad_checks += 1
 
@@ -202,7 +234,10 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
         result.best_epoch = best_epoch
         if ckpt is not None:
             ckpt.save(state.step, state,
-                      extra={"final": True, "loss": result.final_loss})
+                      extra={"final": True, "loss": result.final_loss,
+                             **vocab})
     finally:
+        if prof is not None:
+            prof.stop()
         log.close()
     return result

@@ -5,8 +5,9 @@ Counterpart of ``openkeonspark_tpu/train/step.py:27-328, 366-389``.
 Gradients are taken with torch autograd with respect to the *gathered*
 slot rows, never the dense tables, and turn into merged per-table row
 updates (:func:`merged_row_updates`) for the optimizers of ``optim.py``.
-TransE, TransH, TransD and RotatE train through this generic step, as in
-the JAX package, where their steps have no Pallas kernel either.
+TransE, TransH, TransD, RotatE, DistMult and ComplEx train through this
+generic step, as in the JAX package, where their steps have no Pallas
+kernel either.
 
 TransR with entity negatives only takes the relation-grouped route
 (:func:`use_grouped_transr`): the batch is sorted by relation, every slot
@@ -246,10 +247,7 @@ def check_train_supported(cfg: Config) -> None:
                "a mesh": cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1,
                "a coordinator": bool(cfg.coordinator)
                or cfg.num_processes > 1,
-               "batch_number (incremental warm start)":
-                   cfg.batch_number is not None,
                "type_constrain": cfg.type_constrain,
-               "trace_dir": bool(cfg.trace_dir),
                "exchange_hot_rows": cfg.exchange_hot_rows > 0,
                f"dtype {cfg.dtype!r}": cfg.dtype != "float32"}
     for what, on in refused.items():

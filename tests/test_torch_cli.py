@@ -2,6 +2,8 @@
 export, no silent device fallback, refusals of unported options, and no
 jax import."""
 
+import contextlib
+import io
 import os
 import subprocess
 import sys
@@ -18,6 +20,9 @@ from openkeonspark_tpu.data.dataset import save_dataset
 from openkeonspark_tpu.data.index import build_kg_index
 from openkeonspark_tpu.data.synth import planted_kg
 from openkeonspark_tpu.eval import link_prediction as jax_link_prediction
+from openkeonspark_tpu.eval import predict_head_entity as jax_predict_head
+from openkeonspark_tpu.eval import predict_relation as jax_predict_rel
+from openkeonspark_tpu.eval import predict_tail_entity as jax_predict_tail
 from openkeonspark_tpu.models import get_model as jax_get_model
 from openkeonspark_tpu.train.step import init_state
 from openkeonspark_tpu_torch.cli import evaluate
@@ -68,7 +73,7 @@ def test_cli_cuda_without_card_raises(exported, monkeypatch):
         evaluate.main(_argv(root, "--device", "cuda", "--link_prediction"))
 
 
-@pytest.mark.parametrize("extra", [["--model", "distmult"],
+@pytest.mark.parametrize("extra", [["--num_processes", "2"],
                                    ["--mesh_model", "2"],
                                    ["--type_constrain"],
                                    ["--eval_dtype", "bfloat16"]])
@@ -118,9 +123,25 @@ def test_cli_transr_prints_jax_table(exported_transr, capsys):
                                    ["--predict_head", "1,0"],
                                    ["--predict_rel", "0,1"]])
 def test_cli_transr_refuses_predict(exported_transr, query):
-    root = exported_transr[0]
+    """TransR's ``--predict_*`` queries are ported: they refuse only what
+    every query refuses (a bfloat16 eval dtype), and without it print the
+    JAX package's top-k ids."""
+    root, ds, cfg, jp = exported_transr
     with pytest.raises(NotPortedError, match="ROADMAP"):
-        evaluate.main(_transr_argv(root, *query))
+        evaluate.main(_transr_argv(root, *query, "--eval_dtype", "bfloat16"))
+    a, b = map(int, query[1].split(","))
+    ref = {"--predict_tail": lambda: jax_predict_tail(
+               jp, cfg, ds.n_ent, ds.n_rel, a, b, k=5),
+           "--predict_head": lambda: jax_predict_head(
+               jp, cfg, ds.n_ent, ds.n_rel, a, b, k=5),
+           "--predict_rel": lambda: jax_predict_rel(
+               jp, cfg, ds.n_ent, ds.n_rel, a, b, k=4)}[query[0]]
+    k = 4 if query[0] == "--predict_rel" else 5
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        evaluate.main(_transr_argv(root, *query, "--topk", str(k)))
+    ids = [int(line.split()[0]) for line in out.getvalue().splitlines()
+           if line.startswith("  ")]
+    assert ids == ref()[0].tolist()
 
 
 def test_port_imports_no_jax():
@@ -155,6 +176,8 @@ def test_port_imports_no_jax():
         "        raise AssertionError(f'{name} was not blocked')\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "assert len(names) > 30, names\n"
+        "assert {'openkeonspark_tpu_torch.models.distmult',\n"
+        "        'openkeonspark_tpu_torch.models.complexe'} <= set(names)\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

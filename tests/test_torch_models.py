@@ -142,6 +142,13 @@ def test_state_dict_checkpoint_and_directory_lookup(tmp_path):
 
 
 def test_unported_model_refused():
+    """All seven models of the JAX package are ported; any other name is
+    refused, naming them."""
     assert get_model("transe") is TransE
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        get_model("distmult")
+    assert get_model("distmult").name == "distmult"
+    assert get_model("complex").name == "complex"
+    with pytest.raises(NotPortedError, match="ROADMAP") as err:
+        get_model("transa")
+    for name in ("transe", "transh", "transr", "transd", "distmult",
+                 "complex", "rotate"):
+        assert name in str(err.value)

@@ -26,9 +26,9 @@ from openkeonspark_tpu_torch.models import get_model
 from torch_parity import port_config
 
 CPU = torch.device("cpu")
-# (model, p): every model with top-k prediction, RotatE without a norm
+# (model, p): every model, RotatE, DistMult and ComplEx without a norm
 CASES = [("transe", 1), ("transe", 2), ("transh", 1), ("transd", 2),
-         ("rotate", 1)]
+         ("rotate", 1), ("transr", 2), ("distmult", 1), ("complex", 1)]
 PREDICT = ("predict_head_entity", "predict_tail_entity", "predict_relation",
            "predict_triple")
 # (h, t, r) queried: first, middle and last ids

@@ -275,11 +275,14 @@ def test_cli_train_transr_relation_negatives(planted_dir, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "complex"],
+    ["--eval_dtype", "bfloat16", "--test_link_prediction"],
     ["--exchange_hot_rows", "4", "--exchange_capacity", "stats"],
-    ["--sampler", "host"], ["--mesh_model", "2"], ["--batch_number", "1"],
-    ["--model", "distmult"], ["--type_constrain"]])
+    ["--sampler", "host"], ["--mesh_model", "2"], ["--num_processes", "2"],
+    ["--coordinator", "localhost:1"], ["--type_constrain"]])
 def test_cli_train_refuses_unported_options(planted_dir, tmp_path, extra):
+    """``--batch_number``, ``--trace_dir`` and the DistMult and ComplEx
+    models are ported (``tests/test_torch_warm_start.py``); these options
+    are not."""
     root, _ = planted_dir
     with pytest.raises(NotPortedError, match="ROADMAP"):
         train_cli.main(_argv(root, tmp_path / "o", "--train_times", "1")

@@ -93,12 +93,32 @@ def transr_near_tie_counts(ent: np.ndarray, rel: np.ndarray,
     return out
 
 
-def model_scores64(model: str, tables: dict, h, t, r, p: int) -> np.ndarray:
+# the models whose score is a signed sum of products, not a norm
+BILINEAR = ("distmult", "complex")
+
+
+def model_scores64(model: str, tables: dict, h, t, r, p: int,
+                   magnitude: bool = False) -> np.ndarray:
     """float64 scores of id triples (broadcasting index arrays) straight
-    from the model's definition, for transe, transh, transd and rotate."""
+    from the model's definition, for transe, transh, transd, rotate,
+    distmult and complex. ``magnitude=True`` gives a bilinear model's
+    Σ|term| instead of its signed sum: the scale of its fp32 rounding
+    (a norm's terms are never negative, so its score is its scale)."""
     P = {k: np.asarray(v, np.float64) for k, v in tables.items()}
     E, R = P["ent_embeddings"], P["rel_embeddings"]
     eh, et = E[h], E[t]
+    if model in BILINEAR:
+        er = R[r]
+        if model == "distmult":
+            terms = [eh * er * et]
+        else:
+            d = er.shape[-1] // 2
+            hr, hi, rr, ri = eh[..., :d], eh[..., d:], er[..., :d], er[..., d:]
+            tr, ti = et[..., :d], et[..., d:]
+            terms = [hr * rr * tr, hi * rr * ti, hr * ri * ti, -hi * ri * tr]
+        if magnitude:
+            return sum(np.abs(x).sum(-1) for x in terms)
+        return -sum(x.sum(-1) for x in terms)
     if model == "rotate":
         d = R.shape[1]
         cos, sin = np.cos(R[r]), np.sin(R[r])
@@ -134,7 +154,13 @@ def model_near_tie_counts(model: str, tables: dict, triples: np.ndarray,
         gold = s[rows, gold_ids]
         gap = np.abs(s - gold[:, None])
         gap[rows, gold_ids] = np.inf
-        out[name] = (gap <= NEAR_TIE_RTOL * np.abs(gold)[:, None]).sum(1)
+        if model in BILINEAR:   # a signed sum: its terms' scale, not |gold|
+            mag = model_scores64(model, tables, hh, tt, r[:, None], p,
+                                 magnitude=True)
+            tol = np.maximum(mag, mag[rows, gold_ids][:, None])
+        else:
+            tol = np.abs(gold)[:, None]
+        out[name] = (gap <= NEAR_TIE_RTOL * tol).sum(1)
     return out
 
 
