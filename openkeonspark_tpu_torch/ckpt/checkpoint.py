@@ -5,10 +5,11 @@ Counterpart of ``openkeonspark_tpu/ckpt/checkpoint.py``:
 as the reference writes them, so exports pass between the two packages.
 Training checkpoints (:class:`CheckpointManager`) are numbered ``step_N/``
 directories, as in the reference, each holding a torch state dict of the
-tables, the optimizer state and the global step (``state.pt``) and a JSON
-manifest. The incremental mode's warm start (:func:`warm_start_path`,
-:func:`warm_start_from`) carries one batch folder's checkpoint into the
-next batch's possibly larger state. The reference's orbax ``step_N``
+tables (in their dtype, bf16 included), the optimizer state and the global
+step (``state.pt``) and a JSON manifest. Exports are float32 whatever the
+tables' dtype, as the reference's are. The incremental mode's warm start
+(:func:`warm_start_path`, :func:`warm_start_from`) carries one batch
+folder's checkpoint into the next batch's possibly larger state. The reference's orbax ``step_N``
 checkpoints need jax to read and are refused; the port evaluates from an
 export (``cli.train`` writes one every run) or from its own
 ``torch.save`` file (:func:`save_params`)."""
@@ -69,8 +70,9 @@ def save_params(params: Params, path: str) -> None:
 
 
 def load_params(path: str) -> Dict[str, np.ndarray]:
+    """The tables of a ``.pt`` file as float32 numpy (bf16 exactly)."""
     state = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v.numpy() for k, v in state.items()}
+    return {k: v.float().numpy() for k, v in state.items()}
 
 
 def read_parameters(checkpoint: str) -> Tuple[Dict[str, np.ndarray], str]:
@@ -93,12 +95,25 @@ def read_parameters(checkpoint: str) -> Tuple[Dict[str, np.ndarray], str]:
     return import_parameters(path), path
 
 
+def _table_tensor(arr) -> torch.Tensor:
+    """A numpy table as a CPU tensor: bf16 for a bf16 array (the JAX
+    package's ``ml_dtypes.bfloat16``, recognised by its dtype name and
+    itemsize and read through its uint16 bits, so ``ml_dtypes`` is not
+    imported), float32 for anything else."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        bits = np.ascontiguousarray(arr).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.tensor(np.asarray(arr, np.float32))
+
+
 def params_from_numpy(np_params: Dict[str, np.ndarray], model, cfg: Config,
                       n_ent: int, n_rel: int,
                       device: torch.device) -> Params:
     """Carry tables across from numpy (an export, the reference package's
     params, or a ``.pt``): with or without pad rows in, exactly one zero
-    pad row out, float32 on ``device``.
+    pad row out, on ``device``; bf16 tables stay bf16, any other table is
+    float32.
 
     A table with fewer logical rows than the dataset's vocabulary, or with
     non-zero rows past it, belongs to another vocabulary and is refused
@@ -110,18 +125,18 @@ def params_from_numpy(np_params: Dict[str, np.ndarray], model, cfg: Config,
                          f"model {model.name!r}")
     out: Params = {}
     for name, spec in specs.items():
-        arr = np.asarray(np_params[name], np.float32)
-        if arr.ndim != 2 or arr.shape[1] != spec.dim:
-            raise ValueError(f"table {name!r} has shape {arr.shape}, the "
-                             f"model needs width {spec.dim}")
-        if arr.shape[0] < spec.rows or np.any(arr[spec.rows:]):
+        t = _table_tensor(np_params[name])
+        if t.dim() != 2 or t.shape[1] != spec.dim:
+            raise ValueError(f"table {name!r} has shape {tuple(t.shape)}, "
+                             f"the model needs width {spec.dim}")
+        if t.shape[0] < spec.rows or bool((t[spec.rows:] != 0).any()):
             raise ValueError(
-                f"checkpoint table {name!r} holds {arr.shape[0]} rows but "
+                f"checkpoint table {name!r} holds {t.shape[0]} rows but "
                 f"the dataset has {spec.rows} — a vocabulary mismatch, "
                 "not padding")
-        body = torch.tensor(arr[:spec.rows])
-        pad = torch.zeros(padded_rows(spec.rows) - spec.rows, spec.dim)
-        out[name] = torch.cat([body, pad]).to(device)
+        pad = torch.zeros(padded_rows(spec.rows) - spec.rows, spec.dim,
+                          dtype=t.dtype)
+        out[name] = torch.cat([t[:spec.rows], pad]).to(device)
     return out
 
 

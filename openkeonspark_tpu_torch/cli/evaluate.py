@@ -16,9 +16,13 @@ Usage:
 Models: transe, transh, transd, rotate, distmult, complex, and transr
 (``--ent_size`` / ``--rel_size``), each with the ``--predict_*``
 queries. TransH ranks relation by relation through the TransE count
-kernel, or, with ``OKST_EVAL_TRANSH_KERNEL=1``, chunk by chunk through its
-own kernel; DistMult and ComplEx rank through one full-fp32 matrix
-product per query chunk.
+kernel, or, with ``OKST_EVAL_TRANSH_KERNEL=1`` and
+``OKST_EVAL_FORCE_GENERIC=1``, chunk by chunk through its own kernel;
+DistMult and ComplEx rank through one matrix product per query chunk.
+``--type_constrain`` adds the type-constrained table when the dataset
+directory holds ``type_constrain.txt``; ``--eval_dtype bfloat16`` scores
+the generic, bilinear and top-k paths in bf16 (the kernel routes rank in
+fp32 whatever it says, as the reference's do).
 """
 
 from __future__ import annotations
@@ -66,6 +70,18 @@ def main(argv=None):
         if args.link_prediction:
             from openkeonspark_tpu_torch.eval import link_prediction
             print(link_prediction(params, cfg, ds, index).format_table())
+            if cfg.type_constrain:
+                from openkeonspark_tpu_torch.data import maybe_load
+                tc = maybe_load(cfg.in_path)
+                if tc is None:
+                    print("type_constrain.txt not found in dataset dir")
+                else:
+                    from openkeonspark_tpu_torch.eval import (
+                        type_constrained_link_prediction)
+                    rc = type_constrained_link_prediction(params, cfg, ds,
+                                                          index, tc)
+                    print("type-constrained:")
+                    print(rc.format_table())
         if args.triple_classification:
             from openkeonspark_tpu_torch.eval import triple_classification
             print("triple classification:",

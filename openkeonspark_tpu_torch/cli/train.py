@@ -9,10 +9,13 @@ step) and transr (the relation-grouped step with entity negatives only,
 the generic step with ``--negative_rel > 0``; CUDA kernels on the card).
 Optimizers: sgd and the lazy adam, adagrad and adadelta. ``--trace_dir``
 writes a ``torch.profiler`` Chrome trace of the second epoch
-(``train/loop.py``). Options the port does not cover yet (meshes and
-coordinators, ``--sampler host``, ``--type_constrain``,
-``--exchange_hot_rows``, ``--dtype`` other than float32) raise
-``NotPortedError``.
+(``train/loop.py``). ``--type_constrain`` adds the type-constrained table
+to the closing link prediction when the dataset directory holds
+``type_constrain.txt``. The table dtype is the ``Config`` field ``dtype``
+(float32 or bfloat16; no flag sets it, in either package), reached through
+``run`` and ``train.loop.train``. Options the port does not cover yet
+(meshes and coordinators, ``--sampler host``, ``--exchange_hot_rows``)
+raise ``NotPortedError``.
 
 Usage:
     python -m openkeonspark_tpu_torch.cli.train --input data/FB15K \\
@@ -123,6 +126,24 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
                 "filtered_hits10": res.filt_avg.hits10,
                 "raw_mrr": res.raw_avg.mrr,
             }
+            if cfg.type_constrain:
+                from openkeonspark_tpu_torch.data import maybe_load
+                tc = maybe_load(data_dir)
+                if tc is None:
+                    echo("type_constrain.txt not found; skipping "
+                         "constrained eval (generate with "
+                         "tools/gen_type_constrain.py)")
+                else:
+                    from openkeonspark_tpu_torch.eval import (
+                        type_constrained_link_prediction)
+                    rc = type_constrained_link_prediction(
+                        state.params, cfg, ds, index, tc, log=echo)
+                    echo("type-constrained:")
+                    echo(rc.format_table())
+                    summary["type_constrained"] = {
+                        "filtered_mrr": rc.filt_avg.mrr,
+                        "filtered_hits10": rc.filt_avg.hits10,
+                    }
         if cfg.test_triple_classification and ds.n_valid and ds.n_test:
             from openkeonspark_tpu_torch.eval import triple_classification
             out = triple_classification(state.params, cfg, ds, index)

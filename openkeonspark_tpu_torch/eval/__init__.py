@@ -5,3 +5,5 @@ from openkeonspark_tpu_torch.eval.classification import (  # noqa: F401
 from openkeonspark_tpu_torch.eval.predict import (  # noqa: F401
     predict_head_entity, predict_relation, predict_tail_entity,
     predict_triple)
+from openkeonspark_tpu_torch.eval.type_constrained import (  # noqa: F401
+    type_constrained_link_prediction)

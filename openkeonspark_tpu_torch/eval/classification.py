@@ -66,7 +66,8 @@ def corrupt_split(triples: np.ndarray, index: KGIndex, n_ent: int,
 def score_triples(params: Dict[str, torch.Tensor], cfg: Config, n_ent: int,
                   n_rel: int, triples: np.ndarray,
                   batch: int = 8192) -> np.ndarray:
-    """Scores of id triples through the torch model, float32 on the host."""
+    """Scores of id triples through the torch model (in the tables'
+    dtype), float32 on the host."""
     model = get_model(cfg.model)(cfg, n_ent, n_rel, params)
     dev = params["ent_embeddings"].device
     outs = []
@@ -74,7 +75,7 @@ def score_triples(params: Dict[str, torch.Tensor], cfg: Config, n_ent: int,
         chunk = torch.from_numpy(
             np.ascontiguousarray(triples[s:s + batch], np.int64)).to(dev)
         outs.append(model.score_triples(chunk[:, H], chunk[:, T],
-                                        chunk[:, R]).cpu().numpy())
+                                        chunk[:, R]).float().cpu().numpy())
     return np.concatenate(outs) if outs else np.empty(0, np.float32)
 
 

@@ -21,8 +21,27 @@ TransR, and TransH by default, go relation by relation
 are sorted by relation into single-relation chunks, the entity table is
 projected once per chunk (``E @ M_ρ``, or ``E − (E·ŵ_ρ)ŵ_ρ``) and B1
 sweeps the projected table, gold and known-true scores coming from the
-same projected table. ``OKST_EVAL_TRANSH_KERNEL=1`` sends TransH chunk by
-chunk through B6 instead, as the reference's switch does.
+same projected table.
+
+The routes follow the reference's switches (:func:`eval_route`,
+``link_prediction.py:434-471, 531-532``): ``cfg.use_pallas_eval=False``
+sends every model to the generic route (:func:`_rank_chunk`, the
+reference's ``_rank_chunk``: blocks of ``cfg.eval_block`` candidates
+scored through ``eval/scoring.py``, the gold scores read from that sweep,
+the known-true ones scored by the model's triple scorer), which runs no
+kernel; ``OKST_EVAL_FORCE_GENERIC=1`` sends TransR and TransH there, and
+TransH goes chunk by chunk through B6 only when ``OKST_EVAL_TRANSH_KERNEL=1``
+is set beside it. The reference's chunk caps (a chunk over 1,024, or 512
+for RotatE, falls back to its generic path) guard the TPU's VMEM and are
+not ported.
+
+``cfg.eval_dtype`` acts where it acts in the reference: the generic route
+and the bilinear route score in it, and the relation-by-relation routes
+project the entity table from operands rounded to it (products summed in
+fp32, an fp32 projected table). The kernel routes (B1, B2, B3, B6) rank
+in fp32 whatever it says, as the reference's kernels do
+(``pallas_rank.py:231-233, 345``). Tables of any dtype are read as fp32
+(exact for bf16) before a route starts.
 
 DistMult and ComplEx have no count kernel in either package (the JAX
 package ranks them on its generic path, ``_rank_scan``): their scores are
@@ -30,11 +49,12 @@ one full-fp32 product per query chunk and direction, ``S = −(q @ Eᵀ)``
 (:func:`_bilinear_scorers`), and the gold and known-true scores are
 gathered from the same ``S``, so the subtraction is tie-exact here too
 (the JAX package scores the known-true ids elementwise through
-``score_triples``; the two can differ only on near-ties). Ids ≥ n_ent are
-masked out of the count: the zero pad rows score 0, which beats any gold
-of positive dot product. ``S`` is held to :data:`BILINEAR_SWEEP_ELEMS`
-elements: a larger entity table is swept in blocks of rows, twice (the
-gold and known-true scores first, then the count)."""
+``score_triples``; the two can differ only on near-ties). This route is
+their generic route too. Ids ≥ n_ent are masked out of the count: the zero
+pad rows score 0, which beats any gold of positive dot product. ``S`` is
+held to :data:`BILINEAR_SWEEP_ELEMS` elements: a larger entity table is
+swept in blocks of rows, twice (the gold and known-true scores first, then
+the count)."""
 
 from __future__ import annotations
 
@@ -48,15 +68,20 @@ import torch
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.data.dataset import Dataset, H, R, T
 from openkeonspark_tpu_torch.data.index import KGIndex
-from openkeonspark_tpu_torch.eval.scoring import BILINEAR, build_queries
+from openkeonspark_tpu_torch.eval.scoring import (BILINEAR,
+                                                  CANDIDATE_TABLES,
+                                                  build_queries, eval_dot,
+                                                  score_block)
+from openkeonspark_tpu_torch.models.base import get_model
 from openkeonspark_tpu_torch.models.transh import unit
 from openkeonspark_tpu_torch.ops import rank as rank_ops
 from openkeonspark_tpu_torch.runtime import (check_supported, eval_chunk_size,
-                                             full_fp32_matmul)
+                                             full_fp32_matmul, torch_dtype)
 
 
-# elements of one bilinear score block [C, rows]: 256 queries against
-# 65,536 entities (64 MiB of fp32); FB15K-237's 14,541 take one block
+# elements of the candidate scores [C, rows] a swept route keeps at once:
+# 256 queries against 65,536 entities (64 MiB of fp32); FB15K-237's
+# 14,541 are kept whole, a larger table is swept twice
 BILINEAR_SWEEP_ELEMS = 1 << 24
 
 
@@ -103,6 +128,15 @@ class LinkPredictionResult:
     @property
     def filt_avg(self) -> DirectionMetrics:
         return self._avg(self.filt_head, self.filt_tail)
+
+    @staticmethod
+    def from_ranks(ranks: Dict[str, np.ndarray]) -> "LinkPredictionResult":
+        return LinkPredictionResult(
+            raw_head=DirectionMetrics.from_ranks(ranks["raw_head"]),
+            raw_tail=DirectionMetrics.from_ranks(ranks["raw_tail"]),
+            filt_head=DirectionMetrics.from_ranks(ranks["filt_head"]),
+            filt_tail=DirectionMetrics.from_ranks(ranks["filt_tail"]),
+            ranks=ranks)
 
     def format_table(self) -> str:
         """The reference's ``test_link_prediction`` table, byte for byte."""
@@ -175,32 +209,31 @@ def _count_chunk(count, scores, gold_ids: torch.Tensor, known: torch.Tensor,
     return raw, raw - known_better
 
 
-def _bilinear_scorers(q: torch.Tensor, table: torch.Tensor, n_ent: int):
-    """(count, scores) of one query chunk of DistMult or ComplEx, with the
-    signatures of :func:`_scorers`: candidate scores are ``S = −(q @
-    tableᵀ)``, in full fp32, in blocks of rows that keep ``S`` under
-    :data:`BILINEAR_SWEEP_ELEMS` elements. The id scorer gathers from
-    ``S`` (NaN for an id outside [0, rows), unread); the count compares
-    ``S`` with the gold scores, ids ≥ n_ent masked. One block is computed
-    once and kept for both; more are computed again for the count."""
-    C, rows = q.shape[0], table.shape[0]
-    block = max(1, BILINEAR_SWEEP_ELEMS // max(C, 1))
+def _swept_scorers(block_scores, C: int, rows: int, block: int,
+                   n_ent: int, dev, allowed=None):
+    """(count, scores) of one query chunk, with the signatures of
+    :func:`_scorers`, over candidate scores ``block_scores(c0, c1)`` [C,
+    c1 − c0] swept in blocks of ``block`` rows. The id scorer gathers from
+    the sweep (fp32; NaN for an id outside [0, rows), unread); the count
+    compares the sweep with the gold scores, ids ≥ n_ent masked, and with
+    ``allowed`` [C, rows] also the candidates it marks 0. The sweep is kept
+    for both while ``C · rows`` is at most :data:`BILINEAR_SWEEP_ELEMS`,
+    and computed again for the count otherwise."""
     starts = range(0, rows, block)
+    keep = C * rows <= BILINEAR_SWEEP_ELEMS
     kept = {}
 
     def sweep(c0):
         if c0 in kept:
             return kept[c0]
-        with full_fp32_matmul():
-            S = -(q @ table[c0:c0 + block].T)
-        if len(starts) == 1:
+        S = block_scores(c0, min(c0 + block, rows))
+        if keep:
             kept[c0] = S
         return S
 
     def scores(ids):
         flat = ids.reshape(C, -1).long()
-        out = torch.full(flat.shape, float("nan"), dtype=q.dtype,
-                         device=q.device)
+        out = torch.full(flat.shape, float("nan"), device=dev)
         for c0 in starts:
             S = sweep(c0)
             local = flat - c0
@@ -209,25 +242,95 @@ def _bilinear_scorers(q: torch.Tensor, table: torch.Tensor, n_ent: int):
             out = torch.where(inside, got, out)
         return out.view(ids.shape)
 
-    def count(gold, gold_ids):
-        raw = torch.zeros(C, dtype=torch.int32, device=q.device)
+    def count(gold, gold_ids=None):
+        raw = torch.zeros(C, dtype=torch.int32, device=dev)
         for c0 in starts:
             S = sweep(c0)
-            ids = torch.arange(c0, c0 + S.shape[1], device=q.device)
-            raw += ((S < gold[:, None]) & (ids < n_ent)[None]).sum(
-                1, dtype=torch.int32)
+            c1 = c0 + S.shape[1]
+            better = (S < gold[:, None]) & (
+                torch.arange(c0, c1, device=dev) < n_ent)[None]
+            if allowed is not None:
+                better &= allowed[:, c0:c1] > 0
+            raw += better.sum(1, dtype=torch.int32)
         return raw
 
     return count, scores
 
 
+def _bilinear_scorers(q: torch.Tensor, table: torch.Tensor, n_ent: int):
+    """(count, scores) of one query chunk of DistMult or ComplEx
+    (:func:`_swept_scorers`): candidate scores are ``S = −(q @ tableᵀ)``
+    in the queries' dtype, the eval dtype (the table rounded to it, the
+    products summed in fp32 and rounded once, as the reference's
+    ``scoring.py:194-200``), in blocks of rows that keep ``S`` under
+    :data:`BILINEAR_SWEEP_ELEMS` elements."""
+    C, rows = q.shape[0], table.shape[0]
+
+    def block_scores(c0, c1):
+        return -eval_dot(q, table[c0:c1].to(q.dtype).T).to(q.dtype)
+
+    return _swept_scorers(block_scores, C, rows,
+                          max(1, BILINEAR_SWEEP_ELEMS // max(C, 1)), n_ent,
+                          q.device)
+
+
+def _known_scores(params, cfg: Config, h, t, r, known: torch.Tensor,
+                  replace: str, n_ent: int) -> torch.Tensor:
+    """[C, K] scores of the known-true ids through the model's triple
+    scorer (the reference's ``score_triples`` at ``:190-209``); ids ≥
+    n_ent score the zero pad row. Laid out [K, C] against relation rows
+    gathered once a query ([1, C]), so TransR's matrices are never
+    gathered K times."""
+    Model = get_model(cfg.model)
+    ids = {"h": h.long()[None, :], "t": t.long()[None, :],
+           "r": r.long()[None, :]}
+    ids["t" if replace == "tail" else "h"] = known.long().clamp(max=n_ent).T
+    slots = {slot: params[table][ids[anchor]]
+             for slot, table, anchor in Model.gathers()}
+    return Model.score(slots, cfg).T
+
+
+def _rank_chunk(params, cfg: Config, h, t, r, gold: torch.Tensor,
+                known: torch.Tensor, replace: str, n_ent: int,
+                allowed: Optional[torch.Tensor] = None):
+    """The generic route's raw and filtered counts of one query chunk, the
+    reference's ``_rank_chunk`` (``link_prediction.py:150-210``):
+    ``params`` in the eval dtype; candidates swept in blocks of
+    ``cfg.eval_block`` through ``build_queries`` / ``score_block``, the
+    gold scores read from that sweep (pass 1), the candidates with id <
+    n_ent that score strictly better counted (pass 2), and the known-true
+    ids scored by the model's triple scorer (:func:`_known_scores`), not
+    read from the sweep. ``allowed`` [C, rows] (type constraints) is
+    conjoined with the count and with the known-true ids. No kernel."""
+    C, dev = h.shape[0], h.device
+    names = CANDIDATE_TABLES[cfg.model]
+    q = build_queries(params, h.long(), t.long(), r.long(), replace, cfg)
+
+    def block_scores(c0, c1):
+        return score_block(q, {n: params[n][c0:c1] for n in names}, replace,
+                           cfg)
+
+    count, scores = _swept_scorers(
+        block_scores, C, params["ent_embeddings"].shape[0], cfg.eval_block,
+        n_ent, dev, allowed)
+    gold_s = scores(gold)
+    raw = count(gold_s)
+    ks = _known_scores(params, cfg, h, t, r, known, replace, n_ent).float()
+    kvalid = (known < n_ent) & (known != gold[:, None])
+    if allowed is not None:
+        kvalid &= allowed.gather(1, known.long().clamp(
+            max=allowed.shape[1] - 1)) > 0
+    known_better = ((ks < gold_s[:, None]) & kvalid).sum(1, dtype=torch.int32)
+    return raw, raw - known_better
+
+
 def _chunk_scorers(cfg: Config, params, cdot, h, t, r, replace: str,
                    n_ent: int, plain: bool):
-    """The queries of a chunk of test triples and their scorers, by model:
-    the JAX package's ``_rank_chunk_kernel`` (``link_prediction.py:212-258``)
-    and, for DistMult and ComplEx, its ``_rank_chunk`` (``:143-199``; no
-    kernel, so ``plain`` changes nothing there). ``cdot`` is TransD's
-    per-entity dot (None otherwise)."""
+    """The queries of a chunk of test triples and their scorers on the
+    kernel routes, by model: the JAX package's ``_rank_chunk_kernel``
+    (``link_prediction.py:212-258``) and, for DistMult and ComplEx, the
+    bilinear route (no kernel, so ``plain`` changes nothing there).
+    ``cdot`` is TransD's per-entity dot (None otherwise)."""
     if cfg.model in BILINEAR:
         q = build_queries(params, h.long(), t.long(), r.long(), replace,
                           cfg)["q"]
@@ -256,22 +359,45 @@ def _single_relation_chunks(r_all: np.ndarray, chunk: int):
 def _relation_projection(cfg: Config, params):
     """ρ → the entity table projected for relation ρ: ``E @ M_ρ`` [rows,
     d_r] for TransR, ``E − (E·ŵ_ρ)ŵ_ρ`` [rows, d] for TransH (the JAX
-    package's ``_rank_scan_grouped`` ``project``, ``:345-352``)."""
-    E = params["ent_embeddings"]
+    package's ``_rank_scan_grouped`` ``project``, ``:342-352``): operands
+    rounded to ``cfg.eval_dtype``, products summed in fp32, the projected
+    table fp32."""
+    ed = torch_dtype(cfg.eval_dtype)
+    E = params["ent_embeddings"].to(ed)
     if cfg.model == "transr":
         TM, de, dr = params["transfer_matrix"], cfg.d_ent, cfg.d_rel
-        return lambda rho: E @ TM[rho].view(de, dr)
-    W = unit(params["normal_vectors"])
-    return lambda rho: E - (E @ W[rho])[:, None] * W[rho]
+        return lambda rho: eval_dot(E, TM[rho].view(de, dr).to(ed))
+    Ef, W = E.float(), unit(params["normal_vectors"])
+
+    def project(rho):
+        w = W[rho].to(ed).float()
+        return Ef - eval_dot(Ef, w)[:, None] * w
+
+    return project
 
 
-def use_grouped_route(cfg: Config) -> bool:
-    """TransR, and TransH unless ``OKST_EVAL_TRANSH_KERNEL=1`` sends it
-    chunk by chunk through B6 (the reference's A/B switch,
-    ``link_prediction.py:462-464``), rank relation by relation."""
-    return cfg.model == "transr" or (
-        cfg.model == "transh"
-        and os.environ.get("OKST_EVAL_TRANSH_KERNEL") != "1")
+def eval_route(cfg: Config) -> str:
+    """The route ``cfg.model`` ranks on, by the reference's switches
+    (``link_prediction.py:434-471, 531-532``): ``"grouped"`` (relation by
+    relation, B1 on projected tables) for TransR and TransH unless
+    ``OKST_EVAL_FORCE_GENERIC=1``; ``"bilinear"`` for DistMult and ComplEx
+    (their generic route too); ``"generic"`` (:func:`_rank_chunk`, no
+    kernel) for every other model when ``cfg.use_pallas_eval`` is False,
+    for TransR under ``OKST_EVAL_FORCE_GENERIC=1``, and for TransH under it
+    unless ``OKST_EVAL_TRANSH_KERNEL=1`` is set too; else ``"kernel"`` (B1
+    TransE, B2 TransD, B3 RotatE, B6 TransH) chunk by chunk."""
+    if cfg.model in BILINEAR:
+        return "bilinear"
+    if not cfg.use_pallas_eval:
+        return "generic"
+    forced = os.environ.get("OKST_EVAL_FORCE_GENERIC") == "1"
+    if cfg.model in ("transr", "transh") and not forced:
+        return "grouped"
+    if cfg.model == "transr" or (
+            cfg.model == "transh"
+            and os.environ.get("OKST_EVAL_TRANSH_KERNEL") != "1"):
+        return "generic"
+    return "kernel"
 
 
 def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
@@ -318,17 +444,13 @@ def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
     return ranks
 
 
-def _chunked_link_prediction(params, cfg: Config, ds: Dataset,
-                             triples: np.ndarray, offs, k_max: int, vals_t,
-                             vals_h, plain: bool, log=None):
-    """Ranks chunk by chunk in the order of ``triples``, each chunk swept
-    over the whole entity table by the model's count kernel (DistMult and
-    ComplEx: by one matrix product, :func:`_bilinear_scorers`)."""
-    dev = params["ent_embeddings"].device
-    rows = params["ent_embeddings"].shape[0]
-    # TransD's per-entity dot, once per evaluation and shared by every
-    # count and id score
-    cdot = rank_ops.transd_cdot(params) if cfg.model == "transd" else None
+def _chunked_link_prediction(cfg: Config, triples: np.ndarray, offs,
+                             k_max: int, vals_t, vals_h, rows: int, dev,
+                             rank_chunk, log=None, label: str = "link-pred"):
+    """Ranks chunk by chunk in the order of ``triples``:
+    ``rank_chunk(h, t, r, replace, gold, known)`` gives a chunk's raw and
+    filtered counts for one direction, ``known`` its [C, k_max] known-true
+    window padded with ``rows`` (the swept table's row count)."""
     chunk = eval_chunk_size(cfg)
     h_all, t_all, r_all = triples[:, H], triples[:, T], triples[:, R]
     offt, cntt, offh, cnth = offs
@@ -351,19 +473,33 @@ def _chunked_link_prediction(params, cfg: Config, ds: Dataset,
             kh = known_matrix(vals_h, oh[sl], ch[sl], k_max, rows)
             for replace, gold, known in (("tail", t[sl], kt),
                                          ("head", h[sl], kh)):
-                count, scores = _chunk_scorers(cfg, params, cdot, h[sl],
-                                               t[sl], r[sl], replace,
-                                               ds.n_ent, plain)
-                raw, filt = _count_chunk(count, scores, gold, known,
-                                         ds.n_ent)
+                raw, filt = rank_chunk(h[sl], t[sl], r[sl], replace, gold,
+                                       known)
                 out[f"raw_{replace}"].append(raw)
                 out[f"filt_{replace}"].append(filt)
         for k in ranks:
             ranks[k][s:e] = torch.cat(out[k]).cpu().numpy()
         if log is not None:
-            log(f"link-pred {e}/{n}")
-
+            log(f"{label} {e}/{n}")
     return ranks
+
+
+def known_windows(index: KGIndex, triples: np.ndarray, dev):
+    """What every route needs of the all-splits group index: the (off,
+    cnt) windows of each test triple's known tails and heads (host
+    lookups), ``k_max`` (the longest, rounded up to 64) and the flat
+    group arrays on the device, from which the windows are gathered."""
+    if index.hr_all is None or index.tr_all is None:
+        raise ValueError("link prediction needs an eval index "
+                         "(build_kg_index(for_eval=True))")
+    h_all, t_all, r_all = triples[:, H], triples[:, T], triples[:, R]
+    offt, cntt = index.hr_all.lookup(h_all, r_all)
+    offh, cnth = index.tr_all.lookup(t_all, r_all)
+    k_max = int(max(cntt.max(), cnth.max(), 1))
+    k_max = -(-k_max // 64) * 64
+    vals_t, vals_h = (torch.from_numpy(g.sorted_vals.astype(np.int32)).to(dev)
+                      for g in (index.hr_all, index.tr_all))
+    return (offt, cntt, offh, cnth), k_max, vals_t, vals_h
 
 
 @torch.no_grad()
@@ -373,39 +509,43 @@ def link_prediction(params: Dict[str, torch.Tensor], cfg: Config,
                     plain: bool = False) -> LinkPredictionResult:
     """Evaluate link prediction over ``triples`` (default: the test split)
     on the device the tables lie on. ``index`` must be built with
-    ``for_eval=True`` (all-splits group lists). ``plain=True`` counts
-    through the plain PyTorch versions instead of the kernels: the
-    reference the kernel path is held to on the card. TransR and TransH
-    rank relation by relation over projected tables
-    (:func:`use_grouped_route`)."""
+    ``for_eval=True`` (all-splits group lists). The route follows
+    :func:`eval_route`. ``plain=True`` counts through the plain PyTorch
+    versions instead of the kernels: the reference the kernel routes are
+    held to on the card (the generic and bilinear routes run no kernel,
+    so it changes nothing there)."""
     check_supported(cfg)
     if triples is None:
         triples = ds.test
     if triples is None or len(triples) == 0:
         raise ValueError("no test triples")
-    if index.hr_all is None or index.tr_all is None:
-        raise ValueError("link_prediction needs an eval index "
-                         "(build_kg_index(for_eval=True))")
-    guard_finite_params(params)
-
     dev = params["ent_embeddings"].device
-    h_all, t_all, r_all = triples[:, H], triples[:, T], triples[:, R]
-    # host side: only the (off, cnt) window lookups; the known-id windows
-    # are gathered on the device
-    offt, cntt = index.hr_all.lookup(h_all, r_all)
-    offh, cnth = index.tr_all.lookup(t_all, r_all)
-    k_max = int(max(cntt.max(), cnth.max(), 1))
-    k_max = -(-k_max // 64) * 64
-    vals_t = torch.from_numpy(index.hr_all.sorted_vals.astype(np.int32)).to(dev)
-    vals_h = torch.from_numpy(index.tr_all.sorted_vals.astype(np.int32)).to(dev)
-    ranks = (_grouped_link_prediction if use_grouped_route(cfg)
-             else _chunked_link_prediction)(
-        params, cfg, ds, triples, (offt, cntt, offh, cnth), k_max, vals_t,
-        vals_h, plain, log)
-    return LinkPredictionResult(
-        raw_head=DirectionMetrics.from_ranks(ranks["raw_head"]),
-        raw_tail=DirectionMetrics.from_ranks(ranks["raw_tail"]),
-        filt_head=DirectionMetrics.from_ranks(ranks["filt_head"]),
-        filt_tail=DirectionMetrics.from_ranks(ranks["filt_tail"]),
-        ranks=ranks,
-    )
+    offs, k_max, vals_t, vals_h = known_windows(index, triples, dev)
+    guard_finite_params(params)
+    params = {k: v.float() for k, v in params.items()}
+    route = eval_route(cfg)
+    if route == "grouped":
+        ranks = _grouped_link_prediction(params, cfg, ds, triples, offs,
+                                         k_max, vals_t, vals_h, plain, log)
+        return LinkPredictionResult.from_ranks(ranks)
+    if route == "generic":
+        dt = torch_dtype(cfg.eval_dtype)
+        gp = {k: v.to(dt) for k, v in params.items()}
+
+        def rank_chunk(h, t, r, replace, gold, known):
+            return _rank_chunk(gp, cfg, h, t, r, gold, known, replace,
+                               ds.n_ent)
+    else:
+        # TransD's per-entity dot, once per evaluation and shared by every
+        # count and id score
+        cdot = rank_ops.transd_cdot(params) if cfg.model == "transd" \
+            else None
+
+        def rank_chunk(h, t, r, replace, gold, known):
+            count, scores = _chunk_scorers(cfg, params, cdot, h, t, r,
+                                           replace, ds.n_ent, plain)
+            return _count_chunk(count, scores, gold, known, ds.n_ent)
+
+    return LinkPredictionResult.from_ranks(_chunked_link_prediction(
+        cfg, triples, offs, k_max, vals_t, vals_h,
+        params["ent_embeddings"].shape[0], dev, rank_chunk, log))

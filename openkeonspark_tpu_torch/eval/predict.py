@@ -4,8 +4,10 @@ Counterpart of ``openkeonspark_tpu/eval/predict.py``: the query is built
 once (``eval/scoring.py::build_queries``; TransR's anchor projected
 through M_ρ), every candidate entity is scored block by block
 (``score_block``; TransR's blocks projected through M_ρ, so the whole
-table once a query) and the k best (lowest score) are taken with
-``torch.topk`` over the scores of ids < n_ent."""
+table once a query), in ``cfg.eval_dtype``, and the k best (lowest score)
+of the ids < n_ent are taken, read as fp32 (the reference's
+``predict.py:37-38``), by a stable sort: equal scores (common in bf16) come
+lowest id first, as ``lax.top_k`` gives them in the reference."""
 
 from __future__ import annotations
 
@@ -34,10 +36,11 @@ def _topk_entities(params: Dict[str, torch.Tensor], cfg: Config, n_ent: int,
     scores = torch.cat([
         score_block(q, {name: params[name][c0:c0 + block]
                         for name in CANDIDATE_TABLES[cfg.model]},
-                    replace, cfg)[0]
+                    replace, cfg)[0].float()
         for c0 in range(0, n_ent, block)])[:n_ent]
-    best, idx = torch.topk(scores, min(k, n_ent), largest=False)
-    return idx.to(torch.int32).cpu().numpy(), best.cpu().numpy()
+    best, idx = torch.sort(scores, stable=True)
+    k = min(k, n_ent)
+    return idx[:k].to(torch.int32).cpu().numpy(), best[:k].cpu().numpy()
 
 
 def predict_tail_entity(params, cfg: Config, n_ent: int, n_rel: int,

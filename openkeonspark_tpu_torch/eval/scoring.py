@@ -12,10 +12,16 @@ where the reference contracts an ``einsum``: the same products, summed in
 another order. DistMult and ComplEx score a block as ``−(q @ E_blkᵀ)``,
 the bilinear form's one product. Every product runs in full fp32
 (``runtime.full_fp32_matmul``), as the reference asks for
-``Precision.HIGHEST``: with TF32 multiplies near-ties flip ranks. Link
-prediction of the translational and rotational models does not come
-through here: it counts ranks with the fused kernels of
-``ops/rank.py``."""
+``Precision.HIGHEST``: with TF32 multiplies near-ties flip ranks.
+
+Queries and candidate scores are computed in ``cfg.eval_dtype``, as the
+reference's are (``scoring.py:63, 161, 223``): the tables are cast to it,
+and a matrix product takes the rounded operands as fp32 products summed in
+fp32 (:func:`eval_dot`, the reference's ``preferred_element_type=f32``),
+cast back to the eval dtype where the reference casts. Link prediction's
+kernel routes do not come through here: they count ranks with the fused
+kernels of ``ops/rank.py``, in fp32. Its generic route
+(``eval/link_prediction.py::_rank_chunk``) does."""
 
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from openkeonspark_tpu_torch.models.base import pnorm
 from openkeonspark_tpu_torch.models.rotate import modulus_sum
 from openkeonspark_tpu_torch.ops import rank as rank_ops
 from openkeonspark_tpu_torch.runtime import (check_supported,
-                                             full_fp32_matmul)
+                                             full_fp32_matmul, torch_dtype)
 
 # tables whose rows form the candidate axis, per model
 CANDIDATE_TABLES = {
@@ -45,6 +51,15 @@ CANDIDATE_TABLES = {
 BILINEAR = ("distmult", "complex")
 
 
+def eval_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as fp32 products of the operands' values summed in fp32
+    (exact products of bf16 operands; no TF32): the reference's
+    ``jnp.dot(..., preferred_element_type=jnp.float32)``. A product of
+    two bf16 tensors would round its result to bf16."""
+    with full_fp32_matmul():
+        return torch.matmul(a.float(), b.float())
+
+
 def build_queries(params: Dict[str, torch.Tensor], h: torch.Tensor,
                   t: torch.Tensor, r: torch.Tensor, replace: str,
                   cfg: Config) -> Dict[str, torch.Tensor]:
@@ -57,12 +72,13 @@ def build_queries(params: Dict[str, torch.Tensor], h: torch.Tensor,
     hr·ri]`` (tail) or ``[rr·tr + ri·ti, rr·ti − ri·tr]`` (head), the
     reference's ``scoring.py:90-112``."""
     check_supported(cfg)
+    dt = torch_dtype(cfg.eval_dtype)
+    params = {k: v.to(dt) for k, v in params.items()}
     E, R = params["ent_embeddings"], params["rel_embeddings"]
     if cfg.model == "transr":
         m = params["transfer_matrix"][r].view(-1, cfg.d_ent, cfg.d_rel)
         anchor = E[h] if replace == "tail" else E[t]
-        with full_fp32_matmul():
-            pa = torch.bmm(anchor[:, None, :], m)[:, 0]
+        pa = eval_dot(anchor[:, None, :], m)[:, 0].to(dt)
         q = pa + R[r] if replace == "tail" else R[r] - pa
         return {"q": q, "m": m}
     if cfg.model == "distmult":
@@ -91,14 +107,14 @@ def score_block(q: Dict[str, torch.Tensor], cand: Dict[str, torch.Tensor],
                 replace: str, cfg: Config) -> torch.Tensor:
     """[C, E_blk] scores of ``cand['ent_embeddings']`` [E_blk, d] (and
     ``cand['ent_transfer']`` for TransD); ``replace`` fixes the residual's
-    sign."""
+    sign. Scores are in ``cfg.eval_dtype``."""
+    dt = torch_dtype(cfg.eval_dtype)
+    cand = {k: v.to(dt) for k, v in cand.items()}
     if cfg.model in BILINEAR:
-        with full_fp32_matmul():
-            return -(q["q"] @ cand["ent_embeddings"].T)
+        return -eval_dot(q["q"], cand["ent_embeddings"].T).to(dt)
     sign = -1.0 if replace == "tail" else 1.0
     if cfg.model == "transr":
-        with full_fp32_matmul():
-            pce = torch.matmul(cand["ent_embeddings"], q["m"])   # [C, E, dr]
+        pce = eval_dot(cand["ent_embeddings"], q["m"]).to(dt)   # [C, E, dr]
         return pnorm(q["q"][:, None, :] + sign * pce, cfg.p_norm)
     ce = cand["ent_embeddings"][None, :, :]              # [1, E, d]
     if cfg.model == "rotate":

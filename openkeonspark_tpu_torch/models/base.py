@@ -47,24 +47,27 @@ def padded_rows(rows: int, multiple: int = 1) -> int:
 
 
 def init_tables(gen: torch.Generator, specs: Dict[str, TableSpec],
-                device: torch.device, pad_to_multiple: int = 1) -> Params:
+                device: torch.device, pad_to_multiple: int = 1,
+                dtype: torch.dtype = torch.float32) -> Params:
     """Xavier-initialised tables with zero padding rows appended, in sorted
-    table-name order (the reference's order of key splits)."""
+    table-name order (the reference's order of key splits), drawn in fp32
+    and stored in ``dtype``."""
     params: Params = {}
     for name in sorted(specs):
         spec = specs[name]
         body = xavier_uniform(gen, spec.rows, spec.dim)
         pad = torch.zeros(padded_rows(spec.rows, pad_to_multiple) - spec.rows,
                           spec.dim)
-        params[name] = torch.cat([body, pad]).to(device)
+        params[name] = torch.cat([body, pad]).to(device, dtype)
     return params
 
 
 def strip_padding(params: Params, specs: Dict[str, TableSpec]
                   ) -> Dict[str, np.ndarray]:
-    """Drop padding rows, as numpy on the host (export and tests)."""
-    return {name: params[name][: specs[name].rows].detach().cpu().numpy()
-            for name in specs}
+    """Drop padding rows, as float32 numpy on the host (export and tests;
+    numpy has no bf16, and a bf16 value is exact in fp32)."""
+    return {name: params[name][: specs[name].rows].detach().cpu().float()
+            .numpy() for name in specs}
 
 
 def pnorm(x: torch.Tensor, p: int, dim: int = -1) -> torch.Tensor:

@@ -45,14 +45,18 @@ class TransR(KGEModel):
     def score(slots: Slots, cfg: Config) -> torch.Tensor:
         de, dr = cfg.d_ent, cfg.d_rel
         m = slots["m_r"].reshape(slots["m_r"].shape[:-1] + (de, dr))
-        h_e, t_e = slots["h_e"], slots["t_e"]
-        if m.dim() == h_e.dim() + 1 and m.shape[0] == 1 and h_e.shape[0] != 1:
-            # untiled [1, B, d_e·d_r] slot (every segment shares r):
-            # contract each segment against the one matrix per column
-            # instead of broadcasting the matrices S times
-            h = torch.einsum("sbe,ber->sbr", h_e, m[0])
-            t = torch.einsum("sbe,ber->sbr", t_e, m[0])
-        else:
-            h = torch.einsum("...e,...er->...r", h_e, m)
-            t = torch.einsum("...e,...er->...r", t_e, m)
+        h = _project(slots["h_e"], m)
+        t = _project(slots["t_e"], m)
         return pnorm(h + slots["r_e"] - t, cfg.p_norm)
+
+
+def _project(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Rows ``x`` through their matrices ``m``, as fp32 products summed in
+    fp32 (the reference's ``preferred_element_type=f32``: bf16 slots give
+    an fp32 projection). An untiled ``[1, B, d_e, d_r]`` m (every segment
+    shares r) is contracted against each segment of a ``[S, B, d_e]`` x
+    instead of being broadcast S times."""
+    x, m = x.float(), m.float()
+    if m.dim() == x.dim() + 1 and m.shape[0] == 1 and x.dim() == 3:
+        return torch.einsum("sbe,ber->sbr", x, m[0])
+    return torch.einsum("...e,...er->...r", x, m)

@@ -57,6 +57,7 @@ SIGNATURES = {
     "okst_grouped_project_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # table, delta, order, off, rows, width, stream
     "okst_scatter_add_rows_sorted": (_P, _P, _P, _P, _I, _I, _P),
+    "okst_scatter_add_rows_sorted_bf16": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

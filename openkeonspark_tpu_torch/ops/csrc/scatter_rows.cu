@@ -36,9 +36,20 @@
 // serially by its row's 40 tiles, which bounds the kernel when one relation
 // holds a large share of the batch.
 //
-// Plain C interface, loaded with ctypes (ops/build.py); the launcher returns
+// bf16 tables (the reference's scatter on a table.dtype == bfloat16 table,
+// whose tbuf + dbuf adds in bf16): the same kernels over rows of bf16 bits,
+// eight columns to a 16-byte load. Each add is an fp32 __fadd_rn of the two
+// bf16 values rounded once to bf16 (__float2bfloat16_rn): the fp32 sum of two
+// bf16 values is exact, or, when their exponents lie more than 16 apart, off
+// by far less than half a bf16 ulp of the larger, so the one rounding gives
+// the correctly rounded bf16 sum, one rounding per add, in run order, as the
+// plain version (index_add_ on a bf16 tensor) and the JAX kernel round.
+// Half the fp32 bytes: the bound is half of the fp32 kernel's.
+//
+// Plain C interface, loaded with ctypes (ops/build.py); each launcher returns
 // the cudaError_t of its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,75 +57,118 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kCols = 4;                       // columns per thread
-constexpr int kTileCols = kThreads * kCols;    // columns per block
 constexpr int kInFlight = 8;                   // delta loads before their adds
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
-                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
-}
+// fp32 rows: four columns to a float4
+struct Fp32 {
+  using Elem = float;
+  using Vec = float4;
+  static constexpr int kVec = 4;               // columns per thread
+  __device__ static float zero() { return 0.0f; }
+  __device__ static float load(const float* p) { return __ldg(p); }
+  __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
+  __device__ static float4 add(float4 a, float4 b) {
+    return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                       __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+  }
+};
 
-// width % 4 == 0, 16-byte aligned bases: thread owns 4 consecutive columns
+// bf16 rows as their 16-bit patterns: eight columns to a uint4, the lower
+// column in the low half of each 32-bit word
+struct Bf16 {
+  using Elem = unsigned short;
+  using Vec = uint4;
+  static constexpr int kVec = 8;
+  __device__ static unsigned short zero() { return 0; }
+  __device__ static unsigned short load(const unsigned short* p) {
+    return __ldg(p);
+  }
+  __device__ static unsigned short add_f(float a, float b) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(__fadd_rn(a, b)));
+  }
+  __device__ static unsigned short add(unsigned short a, unsigned short b) {
+    return add_f(__uint_as_float(static_cast<uint32_t>(a) << 16),
+                 __uint_as_float(static_cast<uint32_t>(b) << 16));
+  }
+  __device__ static uint32_t add2(uint32_t a, uint32_t b) {
+    const uint32_t lo = add_f(__uint_as_float(a << 16),
+                              __uint_as_float(b << 16));
+    const uint32_t hi = add_f(__uint_as_float(a & 0xffff0000u),
+                              __uint_as_float(b & 0xffff0000u));
+    return lo | (hi << 16);
+  }
+  __device__ static uint4 add(uint4 a, uint4 b) {
+    return make_uint4(add2(a.x, b.x), add2(a.y, b.y), add2(a.z, b.z),
+                      add2(a.w, b.w));
+  }
+};
+
+// width % kVec == 0, 16-byte aligned bases: thread owns kVec consecutive
+// columns
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-scatter_rows_vec_kernel(float* __restrict__ table,
-                        const float* __restrict__ delta,
+scatter_rows_vec_kernel(typename E::Elem* __restrict__ table,
+                        const typename E::Elem* __restrict__ delta,
                         const int64_t* __restrict__ order,
                         const int* __restrict__ off, int width) {
+  using Vec = typename E::Vec;
   const int row = blockIdx.x;
   const int start = off[row], end = off[row + 1];
   if (start >= end) return;
-  const int col = blockIdx.y * kTileCols + threadIdx.x * kCols;
+  const int col = blockIdx.y * kThreads * E::kVec + threadIdx.x * E::kVec;
   if (col >= width) return;
-  float4* dst = reinterpret_cast<float4*>(
+  Vec* dst = reinterpret_cast<Vec*>(
       table + static_cast<size_t>(row) * width + col);
-  float4 acc = *dst;
+  Vec acc = *dst;
   for (int j = start; j < end; j += kInFlight) {
     const int n = min(kInFlight, end - j);
-    float4 d[kInFlight];
+    Vec d[kInFlight];
 #pragma unroll
     for (int k = 0; k < kInFlight; ++k) {
       if (k < n) {
-        d[k] = __ldg(reinterpret_cast<const float4*>(
+        d[k] = __ldg(reinterpret_cast<const Vec*>(
             delta + static_cast<size_t>(order[j + k]) * width + col));
       }
     }
 #pragma unroll
     for (int k = 0; k < kInFlight; ++k) {
-      if (k < n) acc = add4(acc, d[k]);  // in run order
+      if (k < n) acc = E::add(acc, d[k]);  // in run order
     }
   }
   *dst = acc;
 }
 
 // any width: thread owns columns c0 + threadIdx.x + kThreads * c
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-scatter_rows_scalar_kernel(float* __restrict__ table,
-                           const float* __restrict__ delta,
+scatter_rows_scalar_kernel(typename E::Elem* __restrict__ table,
+                           const typename E::Elem* __restrict__ delta,
                            const int64_t* __restrict__ order,
                            const int* __restrict__ off, int width) {
+  using Elem = typename E::Elem;
+  constexpr int kCols = E::kVec;
   const int row = blockIdx.x;
   const int start = off[row], end = off[row + 1];
   if (start >= end) return;
-  const int c0 = blockIdx.y * kTileCols + threadIdx.x;
-  float* dst = table + static_cast<size_t>(row) * width;
-  float acc[kCols];
+  const int c0 = blockIdx.y * kThreads * kCols + threadIdx.x;
+  Elem* dst = table + static_cast<size_t>(row) * width;
+  Elem acc[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     const int col = c0 + kThreads * c;
-    acc[c] = col < width ? dst[col] : 0.0f;
+    acc[c] = col < width ? dst[col] : E::zero();
   }
   for (int j = start; j < end; j += kInFlight) {
     const int n = min(kInFlight, end - j);
-    float d[kInFlight][kCols];
+    Elem d[kInFlight][kCols];
 #pragma unroll
     for (int k = 0; k < kInFlight; ++k) {
       if (k < n) {
-        const float* src = delta + static_cast<size_t>(order[j + k]) * width;
+        const Elem* src = delta + static_cast<size_t>(order[j + k]) * width;
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int col = c0 + kThreads * c;
-          d[k][c] = col < width ? __ldg(src + col) : 0.0f;
+          d[k][c] = col < width ? E::load(src + col) : E::zero();
         }
       }
     }
@@ -122,7 +176,7 @@ scatter_rows_scalar_kernel(float* __restrict__ table,
     for (int k = 0; k < kInFlight; ++k) {
       if (k < n) {
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[c] = __fadd_rn(acc[c], d[k][c]);
+        for (int c = 0; c < kCols; ++c) acc[c] = E::add(acc[c], d[k][c]);
       }
     }
   }
@@ -133,27 +187,44 @@ scatter_rows_scalar_kernel(float* __restrict__ table,
   }
 }
 
+template <typename E>
+int launch(typename E::Elem* table, const typename E::Elem* delta,
+           const int64_t* order, const int* off, int rows, int width,
+           void* stream) {
+  if (rows < 0 || width < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  const int tile = kThreads * E::kVec;
+  const int tiles = (width + tile - 1) / tile;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(rows, tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = width % E::kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(delta) % 16 == 0;
+  if (vec) {
+    scatter_rows_vec_kernel<E><<<grid, kThreads, 0, s>>>(table, delta, order,
+                                                         off, width);
+  } else {
+    scatter_rows_scalar_kernel<E><<<grid, kThreads, 0, s>>>(
+        table, delta, order, off, width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int okst_scatter_add_rows_sorted(float* table, const float* delta,
                                             const int64_t* order,
                                             const int* off, int rows,
                                             int width, void* stream) {
-  if (rows < 0 || width < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return static_cast<int>(cudaSuccess);
-  const int tiles = (width + kTileCols - 1) / kTileCols;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(rows, tiles);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = width % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(delta) % 16 == 0;
-  if (vec) {
-    scatter_rows_vec_kernel<<<grid, kThreads, 0, s>>>(table, delta, order,
-                                                      off, width);
-  } else {
-    scatter_rows_scalar_kernel<<<grid, kThreads, 0, s>>>(table, delta, order,
-                                                         off, width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<Fp32>(table, delta, order, off, rows, width, stream);
+}
+
+// table and delta: bf16 rows (their 16-bit patterns)
+extern "C" int okst_scatter_add_rows_sorted_bf16(unsigned short* table,
+                                                 const unsigned short* delta,
+                                                 const int64_t* order,
+                                                 const int* off, int rows,
+                                                 int width, void* stream) {
+  return launch<Bf16>(table, delta, order, off, rows, width, stream);
 }

@@ -16,6 +16,9 @@ from openkeonspark_tpu_torch.config import Config
 # is not called: it imports jax and caps chunks for the TPU's VMEM.
 DEFAULT_EVAL_CHUNK = 256
 
+# table and scoring dtypes the port takes (Config.dtype, Config.eval_dtype)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 # the models the port evaluates, trains and answers predict_* queries for
 # (all seven of the JAX package): get_model, check_supported and
 # check_train_supported refuse any other, naming these
@@ -50,6 +53,16 @@ def check_model_ported(name: str) -> None:
             "see ROADMAP.md queue A")
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``Config.dtype`` / ``Config.eval_dtype`` name;
+    the port takes float32 and bfloat16."""
+    if name not in DTYPES:
+        raise NotPortedError(
+            f"dtype {name!r} is not ported (the port takes "
+            f"{', '.join(DTYPES)}); see ROADMAP.md queue A")
+    return DTYPES[name]
+
+
 def check_supported(cfg: Config) -> None:
     """Refuse the options the evaluation slice does not cover, instead of
     ignoring them."""
@@ -59,14 +72,7 @@ def check_supported(cfg: Config) -> None:
             f"multi-device evaluation (mesh {cfg.mesh_shape}, "
             f"{cfg.num_processes} processes) is not yet ported; "
             "see ROADMAP.md queue A")
-    if cfg.type_constrain:
-        raise NotPortedError(
-            "type-constrained link prediction is not yet ported; "
-            "see ROADMAP.md queue A")
-    if cfg.eval_dtype != "float32":
-        raise NotPortedError(
-            f"eval_dtype {cfg.eval_dtype!r} is not yet ported (the port "
-            "scores in float32); see ROADMAP.md queue A")
+    torch_dtype(cfg.eval_dtype)
 
 
 @contextlib.contextmanager

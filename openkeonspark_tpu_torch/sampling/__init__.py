@@ -1,2 +1,2 @@
 from openkeonspark_tpu_torch.sampling.device import (  # noqa: F401
-    DeviceSampler, SampledBatch)
+    DeviceSampler, SampledBatch, flatten_reference_layout)

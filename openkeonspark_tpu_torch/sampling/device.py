@@ -21,7 +21,7 @@ are not ported: the search runs ``iters`` plain rounds."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -93,6 +93,31 @@ class SampledBatch:
     neg_h: Optional[torch.Tensor] = None
     neg_t: Optional[torch.Tensor] = None
     neg_rel: Optional[torch.Tensor] = None
+
+
+def flatten_reference_layout(b: SampledBatch) -> Dict[str, torch.Tensor]:
+    """The reference's slot layout (``Model.py``'s buffers, PARITY.md):
+    slot j < B is positive j, negative segment k fills slots ``j + B·(1 +
+    k)`` (entity negatives first, then relation negatives), and ``y`` is
+    +1 for a positive, −1 for a negative. Counterpart of
+    ``openkeonspark_tpu/sampling/device.py:312-336``."""
+    B = b.h.shape[0]
+    hs, ts, rs = [b.h], [b.t], [b.r]
+    if b.neg_h is not None:
+        for k in range(b.neg_h.shape[1]):
+            hs.append(b.neg_h[:, k])
+            ts.append(b.neg_t[:, k])
+            rs.append(b.r)
+    if b.neg_rel is not None:
+        for k in range(b.neg_rel.shape[1]):
+            hs.append(b.h)
+            ts.append(b.t)
+            rs.append(b.neg_rel[:, k])
+    batch_h = torch.cat(hs)
+    y = torch.full((batch_h.shape[0],), -1.0, device=batch_h.device)
+    y[:B] = 1.0
+    return {"batch_h": batch_h, "batch_t": torch.cat(ts),
+            "batch_r": torch.cat(rs), "batch_y": y}
 
 
 @dataclass

@@ -22,7 +22,17 @@ Unlike the JAX package, which returns new tables, the port updates tables
 and optimizer state in place: a dense ``transfer_matrix`` update would
 otherwise allocate and write a second 107.7 MB table every step at the
 TransR config. The JAX package's one-hot MXU route for small tables is a
-TPU scatter workaround and is not ported."""
+TPU scatter workaround and is not ported.
+
+Tables may be bf16 (``cfg.dtype``). Every update is then cast to the
+table's dtype before it is added, and added in that dtype, as the
+reference's are (``optim.py:133, 202, 226, 242``; B5's
+``pallas_scatter.py:187``): SGD scatters ``−α·g`` in bf16 (B5's bf16
+variant for wide rows), the lazy optimizers sum their gradient rows in
+fp32, do their arithmetic in fp32 and add the bf16-rounded delta. Their
+slots are fp32 whatever the table dtype: the reference's lazy update
+returns fp32 slots (its first step promotes the table-dtype slots it
+starts from, which its scanned loop then refuses as a change of type)."""
 
 from __future__ import annotations
 
@@ -64,11 +74,13 @@ def use_wide_kernel(table: torch.Tensor) -> bool:
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
                      delta: torch.Tensor, plain: bool = False) -> None:
     """In place ``table[ids] += delta``; ids ≥ the table's rows are
-    dropped, duplicates sum. Wide rows (:func:`use_wide_kernel`) take B5:
-    the kernel for a CUDA table, its plain version for a CPU table or when
-    ``plain`` (the reference the kernel is held to); both add in
-    stable-sorted order. Other rows take a masked ``index_add_`` (no host
-    sync; on the card its atomics add in no fixed order)."""
+    dropped, duplicates sum; ``delta`` is cast to the table's dtype first.
+    Wide rows (:func:`use_wide_kernel`) take B5: the kernel for a CUDA
+    table, its plain version for a CPU table or when ``plain`` (the
+    reference the kernel is held to); both add in stable-sorted order.
+    Other rows take a masked ``index_add_`` (no host sync; on the card its
+    atomics add in no fixed order)."""
+    delta = delta.to(table.dtype)
     if use_wide_kernel(table):
         # an id stream may be a column of the sampler's batch (a strided
         # view); B5 reads ids and deltas through raw pointers
@@ -162,7 +174,8 @@ class _LazyRowOptimizer:
     DENSE_MOMENT_MAX_ELEMS = 64 * 1024 * 1024
 
     def init(self, params) -> dict:
-        return {s: {k: torch.full_like(v, self.slot_init.get(s, 0.0))
+        return {s: {k: torch.full_like(v, self.slot_init.get(s, 0.0),
+                                       dtype=torch.float32)
                     for k, v in params.items()}
                 for s in self.state_slots}
 
@@ -173,7 +186,7 @@ class _LazyRowOptimizer:
         delta, new = self._row_update(G, slots, step)
         for s, t in slots.items():
             t.copy_(torch.where(touched, new[s], t))
-        p.add_(torch.where(touched, delta, 0.0))
+        p.add_(torch.where(touched, delta, 0.0).to(p.dtype))
 
     def apply(self, params, state, updates: Updates, step,
               plain: bool = False):
@@ -189,7 +202,7 @@ class _LazyRowOptimizer:
             ids, g = _merged(pairs)
             rows = p.shape[0]
             if p.numel() <= self.DENSE_MOMENT_MAX_ELEMS:
-                G = torch.zeros_like(p)
+                G = torch.zeros_like(p, dtype=torch.float32)
                 scatter_add_rows(G, ids, g, plain)
                 hits = torch.zeros(rows, 1, device=p.device)
                 hits.index_add_(0, torch.clamp(ids, max=rows - 1),
@@ -205,7 +218,7 @@ class _LazyRowOptimizer:
             # collision-safe masked delta-adds: invalid lanes add exact 0
             for s, t in slots.items():
                 t.index_add_(0, uc, torch.where(valid, new[s] - old[s], 0.0))
-            p.index_add_(0, uc, torch.where(valid, delta, 0.0))
+            p.index_add_(0, uc, torch.where(valid, delta, 0.0).to(p.dtype))
         return params, state
 
 

@@ -31,7 +31,7 @@ from openkeonspark_tpu_torch.models.base import (Gather, KGEModel, Params,
                                                  init_tables, pnorm)
 from openkeonspark_tpu_torch.ops.grouped import grouped_project, run_offsets
 from openkeonspark_tpu_torch.runtime import (NotPortedError,
-                                             check_model_ported)
+                                             check_model_ported, torch_dtype)
 from openkeonspark_tpu_torch.sampling.device import (DeviceSampler,
                                                      SampledBatch)
 from openkeonspark_tpu_torch.train.loss import margin_ranking_loss
@@ -49,11 +49,12 @@ class TrainState:
 def init_state(model: KGEModel, cfg: Config, n_ent: int, n_rel: int,
                gen: torch.Generator, device: torch.device,
                pad_to_multiple: int = 1) -> TrainState:
-    """Fresh float32 tables from ``gen`` (a seeded CPU generator, so one
-    seed gives the same tables on every device) and the optimizer's
-    state."""
+    """Fresh tables in ``cfg.dtype`` from ``gen`` (a seeded CPU
+    generator, so one seed gives the same tables on every device) and the
+    optimizer's state (the reference's ``train/step.py:45-50``)."""
     params = init_tables(gen, model.tables(cfg, n_ent, n_rel), device,
-                         pad_to_multiple=pad_to_multiple)
+                         pad_to_multiple=pad_to_multiple,
+                         dtype=torch_dtype(cfg.dtype))
     return TrainState(params=params, opt_state=make_optimizer(cfg).init(params),
                       step=0)
 
@@ -241,19 +242,27 @@ def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
 
 
 def check_train_supported(cfg: Config) -> None:
-    """Refuse the training options the port does not cover."""
+    """Refuse the training options the port does not cover. TransR's
+    grouped route with bf16 tables is refused as the reference refuses it:
+    its grouped step raises on a bf16 table (a dtype mismatch in its
+    projection kernel's padding)."""
     check_model_ported(cfg.model)
+    torch_dtype(cfg.dtype)
     refused = {"sampler='host'": cfg.sampler == "host",
                "a mesh": cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1,
                "a coordinator": bool(cfg.coordinator)
                or cfg.num_processes > 1,
-               "type_constrain": cfg.type_constrain,
-               "exchange_hot_rows": cfg.exchange_hot_rows > 0,
-               f"dtype {cfg.dtype!r}": cfg.dtype != "float32"}
+               "exchange_hot_rows": cfg.exchange_hot_rows > 0}
     for what, on in refused.items():
         if on:
             raise NotPortedError(f"training with {what} is not yet ported; "
                                  "see ROADMAP.md queue A")
+    if use_grouped_transr(cfg) and cfg.dtype != "float32":
+        raise NotPortedError(
+            f"TransR's grouped step with dtype {cfg.dtype!r} tables: the "
+            "JAX package's grouped step raises on them too; train with "
+            "--negative_rel > 0 or grouped_transr=False (the generic step), "
+            "see ROADMAP.md queue A")
 
 
 def build_train_step(model: KGEModel, cfg: Config, batch_size: int
@@ -292,6 +301,7 @@ def build_group_runner(step_fn: Callable, steps: int) -> Callable:
         for s in range(steps):
             state, loss = step_fn(state, sampler, bits[s])
             losses.append(loss)
-        return state, torch.stack(losses).mean()
+        # a bf16 table's loss is bf16; the mean is fp32
+        return state, torch.stack(losses).float().mean()
 
     return run

@@ -74,14 +74,56 @@ def test_cli_cuda_without_card_raises(exported, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [["--num_processes", "2"],
-                                   ["--mesh_model", "2"],
-                                   ["--type_constrain"],
-                                   ["--eval_dtype", "bfloat16"]])
+                                   ["--mesh_model", "2"]])
 def test_cli_refuses_unported_options(exported, extra):
     root = exported[0]
     with pytest.raises(NotPortedError, match="ROADMAP"):
         evaluate.main(_argv(root, "--device", "cpu", "--link_prediction")
                       + extra)
+
+
+def test_cli_eval_dtype_bf16_prints_jax_table(exported, capsys,
+                                             monkeypatch):
+    """``--eval_dtype bfloat16`` on TransE's kernel route (B1's plain
+    version here) prints the JAX package's bf16 table (its kernel route, in
+    interpret mode), which is its fp32 table: both kernel routes rank in
+    fp32 whatever the flag says."""
+    root, ds, cfg, jp = exported
+    evaluate.main(_argv(root, "--device", "cpu", "--link_prediction",
+                        "--eval_dtype", "bfloat16"))
+    out = capsys.readouterr().out
+    idx = build_kg_index(ds, for_eval=True)
+    monkeypatch.setenv("OKST_PALLAS_INTERPRET", "1")
+    want = jax_link_prediction(jp, cfg.replace(eval_dtype="bfloat16"), ds,
+                               idx).format_table()
+    assert want in out
+    assert want == jax_link_prediction(jp, cfg, ds, idx).format_table()
+
+
+def test_cli_type_constrain_prints_jax_table(exported, tmp_path, capsys):
+    """``--type_constrain`` prints the unconstrained table, then
+    ``type-constrained:`` and the JAX package's constrained table on the
+    same tables; without ``type_constrain.txt`` it says so."""
+    from openkeonspark_tpu.data.type_constrain import (
+        build_type_constraints, save_type_constraints)
+    from openkeonspark_tpu.eval import type_constrained_link_prediction
+    root, ds, cfg, jp = exported
+    save_dataset(ds, str(tmp_path / "kg"))
+    tc = build_type_constraints(ds)
+    save_type_constraints(tc, str(tmp_path / "kg" / "type_constrain.txt"))
+    argv = ["--input", str(tmp_path / "kg")] + _argv(root)[2:] + [
+        "--device", "cpu", "--link_prediction", "--type_constrain"]
+    evaluate.main(argv)
+    out = capsys.readouterr().out
+    idx = build_kg_index(ds, for_eval=True)
+    want = type_constrained_link_prediction(jp, cfg, ds, idx, tc)
+    assert jax_link_prediction(jp, cfg, ds, idx).format_table() in out
+    assert "type-constrained:\n" + want.format_table() in out
+    evaluate.main(_argv(root, "--device", "cpu", "--link_prediction",
+                        "--type_constrain"))
+    out = capsys.readouterr().out
+    assert "type_constrain.txt not found in dataset dir" in out
+    assert "type-constrained:" not in out
 
 
 @pytest.fixture(scope="module")
@@ -123,25 +165,27 @@ def test_cli_transr_prints_jax_table(exported_transr, capsys):
                                    ["--predict_head", "1,0"],
                                    ["--predict_rel", "0,1"]])
 def test_cli_transr_refuses_predict(exported_transr, query):
-    """TransR's ``--predict_*`` queries are ported: they refuse only what
-    every query refuses (a bfloat16 eval dtype), and without it print the
-    JAX package's top-k ids."""
+    """TransR's ``--predict_*`` queries are ported, in fp32 and with
+    ``--eval_dtype bfloat16`` (the query and the candidate scores in
+    bf16): each prints the JAX package's top-k ids at the same eval
+    dtype."""
     root, ds, cfg, jp = exported_transr
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        evaluate.main(_transr_argv(root, *query, "--eval_dtype", "bfloat16"))
     a, b = map(int, query[1].split(","))
-    ref = {"--predict_tail": lambda: jax_predict_tail(
-               jp, cfg, ds.n_ent, ds.n_rel, a, b, k=5),
-           "--predict_head": lambda: jax_predict_head(
-               jp, cfg, ds.n_ent, ds.n_rel, a, b, k=5),
-           "--predict_rel": lambda: jax_predict_rel(
-               jp, cfg, ds.n_ent, ds.n_rel, a, b, k=4)}[query[0]]
     k = 4 if query[0] == "--predict_rel" else 5
-    with contextlib.redirect_stdout(io.StringIO()) as out:
-        evaluate.main(_transr_argv(root, *query, "--topk", str(k)))
-    ids = [int(line.split()[0]) for line in out.getvalue().splitlines()
-           if line.startswith("  ")]
-    assert ids == ref()[0].tolist()
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(eval_dtype=dtype)
+        ref = {"--predict_tail": lambda: jax_predict_tail(
+                   jp, c, ds.n_ent, ds.n_rel, a, b, k=5),
+               "--predict_head": lambda: jax_predict_head(
+                   jp, c, ds.n_ent, ds.n_rel, a, b, k=5),
+               "--predict_rel": lambda: jax_predict_rel(
+                   jp, c, ds.n_ent, ds.n_rel, a, b, k=4)}[query[0]]
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            evaluate.main(_transr_argv(root, *query, "--topk", str(k),
+                                       "--eval_dtype", dtype))
+        ids = [int(line.split()[0]) for line in out.getvalue().splitlines()
+               if line.startswith("  ")]
+        assert ids == ref()[0].tolist(), dtype
 
 
 def test_port_imports_no_jax():
@@ -177,7 +221,10 @@ def test_port_imports_no_jax():
         "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "assert len(names) > 30, names\n"
         "assert {'openkeonspark_tpu_torch.models.distmult',\n"
-        "        'openkeonspark_tpu_torch.models.complexe'} <= set(names)\n"
+        "        'openkeonspark_tpu_torch.models.complexe',\n"
+        "        'openkeonspark_tpu_torch.compat',\n"
+        "        'openkeonspark_tpu_torch.eval.type_constrained',\n"
+        "        'openkeonspark_tpu_torch.data.type_constrain'} <= set(names)\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

@@ -5,6 +5,7 @@ nothing of the JAX package, so these copies must stay equal by test."""
 
 import argparse
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -14,11 +15,13 @@ from openkeonspark_tpu.cli import args as jax_args
 from openkeonspark_tpu.data import dataset as jax_dataset
 from openkeonspark_tpu.data import index as jax_index
 from openkeonspark_tpu.data import synth as jax_synth
+from openkeonspark_tpu.data import type_constrain as jax_tc
 from openkeonspark_tpu_torch import config as port_config_mod
 from openkeonspark_tpu_torch.cli import args as port_args
 from openkeonspark_tpu_torch.data import dataset as port_dataset
 from openkeonspark_tpu_torch.data import index as port_index
 from openkeonspark_tpu_torch.data import synth as port_synth
+from openkeonspark_tpu_torch.data import type_constrain as port_tc
 
 from torch_parity import port_config
 
@@ -175,3 +178,37 @@ def test_dataset_files_equal(tmp_path):
         assert (got.ent_names, got.rel_names) == (want.ent_names,
                                                   want.rel_names)
         np.testing.assert_array_equal(got.all_triples(), want.all_triples())
+
+
+def test_type_constrain_equal(tmp_path):
+    """The port's ``data/type_constrain.py`` is the reference's: the same
+    source for every function and class, the same constraints from a KG
+    (all splits and train only), the same ``type_constrain.txt`` bytes,
+    each package reading the other's file back, and the same masks."""
+    names = ("TypeConstraints", "build_type_constraints",
+             "save_type_constraints", "load_type_constraints", "maybe_load")
+    for name in names:
+        assert (inspect.getsource(getattr(port_tc, name))
+                == inspect.getsource(getattr(jax_tc, name))), name
+    ds = port_synth.random_kg(n_ent=50, n_rel=5, n_triples=400, n_valid=20,
+                              n_test=20, seed=3)
+    for splits in ("all", "train"):
+        got = port_tc.build_type_constraints(ds, splits)
+        want = jax_tc.build_type_constraints(ds, splits)
+        assert got.n_rel == want.n_rel
+        for rel in range(ds.n_rel):
+            np.testing.assert_array_equal(got.heads[rel], want.heads[rel])
+            np.testing.assert_array_equal(got.tails[rel], want.tails[rel])
+    port_tc.save_type_constraints(got, str(tmp_path / "port.txt"))
+    jax_tc.save_type_constraints(want, str(tmp_path / "jax.txt"))
+    assert ((tmp_path / "port.txt").read_bytes()
+            == (tmp_path / "jax.txt").read_bytes())
+    back = port_tc.load_type_constraints(str(tmp_path / "jax.txt"))
+    jback = jax_tc.load_type_constraints(str(tmp_path / "port.txt"))
+    np.testing.assert_array_equal(back.head_mask(ds.n_ent),
+                                  jback.head_mask(ds.n_ent))
+    np.testing.assert_array_equal(back.tail_mask(ds.n_ent),
+                                  want.tail_mask(ds.n_ent))
+    (tmp_path / "port.txt").rename(tmp_path / "type_constrain.txt")
+    assert port_tc.maybe_load(str(tmp_path)) is not None
+    assert port_tc.maybe_load(str(tmp_path / "nope")) is None

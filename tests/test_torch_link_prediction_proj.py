@@ -28,7 +28,7 @@ from openkeonspark_tpu_torch.eval import (link_prediction,
                                           predict_relation,
                                           predict_tail_entity,
                                           triple_classification)
-from openkeonspark_tpu_torch.eval.link_prediction import use_grouped_route
+from openkeonspark_tpu_torch.eval.link_prediction import eval_route
 from openkeonspark_tpu_torch.models import get_model
 from openkeonspark_tpu_torch.ops import rank
 
@@ -40,6 +40,7 @@ CPU = torch.device("cpu")
 CASES = [("transh", 1), ("transh", 2), ("transd", 1), ("transd", 2),
          ("rotate", 1)]
 TRANSH_KERNEL = "OKST_EVAL_TRANSH_KERNEL"
+FORCE_GENERIC = "OKST_EVAL_FORCE_GENERIC"
 
 
 @pytest.fixture(scope="module")
@@ -116,7 +117,7 @@ def test_ranks_match_jax(kg, jax_results, model, p, path, monkeypatch):
     relation through B1) against both JAX paths."""
     monkeypatch.delenv(TRANSH_KERNEL, raising=False)
     ds, idx, _, _, tp, cfg = _setup(kg, model, p)
-    assert use_grouped_route(cfg) == (model == "transh")
+    assert (eval_route(cfg) == "grouped") == (model == "transh")
     got = link_prediction(tp, cfg, ds, idx)
     _assert_ranks_match(got, jax_results[model, p, path],
                         _ties(ds, tp, model, p))
@@ -126,18 +127,24 @@ def test_ranks_match_jax(kg, jax_results, model, p, path, monkeypatch):
 @pytest.mark.parametrize("p", [1, 2])
 def test_transh_kernel_route_matches_jax(kg, jax_results, p, path,
                                          monkeypatch):
-    """OKST_EVAL_TRANSH_KERNEL=1 sends TransH chunk by chunk through B6's
-    count (its plain version here) and nothing else does."""
+    """OKST_EVAL_TRANSH_KERNEL=1 with OKST_EVAL_FORCE_GENERIC=1 sends TransH
+    chunk by chunk through B6's count (its plain version here), as the
+    reference's pair does, and nothing else does: either variable alone
+    leaves it off B6."""
     ds, idx, _, _, tp, cfg = _setup(kg, "transh", p)
     monkeypatch.setenv(TRANSH_KERNEL, "1")
-    assert not use_grouped_route(cfg)
+    monkeypatch.setenv(FORCE_GENERIC, "1")
+    assert eval_route(cfg) == "kernel"
     lines = []
     got = link_prediction(tp, cfg, ds, idx, log=lines.append)
     assert not any("grouped" in s for s in lines)
     _assert_ranks_match(got, jax_results["transh", p, path],
                         _ties(ds, tp, "transh", p))
     monkeypatch.setenv(TRANSH_KERNEL, "0")
-    assert use_grouped_route(cfg)
+    assert eval_route(cfg) == "generic"
+    monkeypatch.setenv(TRANSH_KERNEL, "1")
+    monkeypatch.delenv(FORCE_GENERIC)
+    assert eval_route(cfg) == "grouped"
 
 
 @pytest.mark.parametrize("model,p", CASES)
@@ -161,6 +168,7 @@ def test_plain_flag_takes_the_plain_versions(kg, monkeypatch):
     CPU, where the wrappers take the plain versions anyway, and counts no
     kernel launch either way."""
     monkeypatch.setenv(TRANSH_KERNEL, "1")
+    monkeypatch.setenv(FORCE_GENERIC, "1")
     for model, p in CASES:
         ds, idx, _, _, tp, cfg = _setup(kg, model, p)
         rank.reset_launch_counts()

@@ -18,7 +18,7 @@ from openkeonspark_tpu.models import get_model as jax_get_model
 from openkeonspark_tpu.train.step import init_state
 from openkeonspark_tpu_torch.ckpt import params_from_numpy
 from openkeonspark_tpu_torch.eval import link_prediction
-from openkeonspark_tpu_torch.eval.link_prediction import use_grouped_route
+from openkeonspark_tpu_torch.eval.link_prediction import eval_route
 from openkeonspark_tpu_torch.models import get_model
 from openkeonspark_tpu_torch.ops import rank
 
@@ -133,7 +133,8 @@ def test_ranks_match_jax_with_pad_rows(kg, jax_ranks, model, pad,
     monkeypatch.delenv("OKST_EVAL_TRANSH_KERNEL", raising=False)
     ds, idx = kg
     _, tp, cfg = _tables(kg, model, pad)
-    assert use_grouped_route(cfg) == (model in ("transr", "transh"))
+    assert (eval_route(cfg) == "grouped") == (model in ("transr",
+                                                        "transh"))
     got = link_prediction(tp, cfg, ds, idx)
     ties = _ties(ds, tp, model)
     want = jax_ranks[model]

@@ -12,8 +12,11 @@ from openkeonspark_tpu.data.dataset import Dataset
 from openkeonspark_tpu.data.index import build_kg_index
 from openkeonspark_tpu.data.synth import random_kg
 from openkeonspark_tpu.sampling.device import DeviceSampler as JaxSampler
+from openkeonspark_tpu.sampling.device import \
+    flatten_reference_layout as jax_flatten
 from openkeonspark_tpu_torch.models import TransE
-from openkeonspark_tpu_torch.sampling import DeviceSampler
+from openkeonspark_tpu_torch.sampling import (DeviceSampler,
+                                              flatten_reference_layout)
 from openkeonspark_tpu_torch.sampling.device import batched_upper_bound
 from openkeonspark_tpu_torch.train.step import gather_slots_structured
 
@@ -171,6 +174,22 @@ def test_reference_layout(kg):
             np.testing.assert_array_equal(h[3 * B:], b.h)
         else:
             np.testing.assert_array_equal(r, b.r)
+
+
+@pytest.mark.parametrize("n_e,n_r", [(1, 0), (2, 1), (0, 2)])
+def test_flatten_reference_layout_equals_jax(n_e, n_r):
+    """Equal batches (the same u32 bits) flatten to equal reference
+    layouts: the same ``batch_h/t/r`` slots and the same ``batch_y``."""
+    ds = random_kg(n_ent=120, n_rel=6, n_triples=1500, n_valid=50,
+                   n_test=50, seed=7)
+    got, want = _batches(ds, 96, n_e, n_r, True, seed=5 + n_e + n_r)
+    got, want = flatten_reference_layout(got), jax_flatten(want)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].shape == (96 * (1 + n_e + n_r),)
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v),
+                                      err_msg=k)
+    assert got["batch_y"].dtype == torch.float32
 
 
 def test_complement_uniformity(kg):

@@ -102,7 +102,8 @@ def test_edge_shapes_and_no_launch_on_cpu():
                                     torch.ones(1, 4096))
     assert torch.equal(table[3], before[3] + 1)
     assert torch.equal(table[[0, 1, 2, 4]], before[[0, 1, 2, 4]])
-    assert scatter.LAUNCHES == {"scatter_add_rows_sorted": 0}
+    assert scatter.LAUNCHES == {"scatter_add_rows_sorted": 0,
+                                "scatter_add_rows_sorted_bf16": 0}
 
 
 def test_wrapper_checks():
@@ -116,6 +117,12 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="shape"):
         scatter.scatter_add_rows_sorted(table, torch.tensor([1]),
                                         torch.ones(1, 7))
+    with pytest.raises(TypeError, match="bfloat16"):
+        scatter.scatter_add_rows_sorted(table.bfloat16(), torch.tensor([1]),
+                                        torch.ones(1, 8))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        scatter.scatter_add_rows_sorted(table.double(), torch.tensor([1]),
+                                        torch.ones(1, 8).double())
 
 
 @pytest.fixture

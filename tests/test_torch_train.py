@@ -275,19 +275,50 @@ def test_cli_train_transr_relation_negatives(planted_dir, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--eval_dtype", "bfloat16", "--test_link_prediction"],
     ["--exchange_hot_rows", "4", "--exchange_capacity", "stats"],
     ["--sampler", "host"], ["--mesh_model", "2"], ["--num_processes", "2"],
-    ["--coordinator", "localhost:1"], ["--type_constrain"]])
+    ["--coordinator", "localhost:1"]])
 def test_cli_train_refuses_unported_options(planted_dir, tmp_path, extra):
     """``--batch_number``, ``--trace_dir`` and the DistMult and ComplEx
-    models are ported (``tests/test_torch_warm_start.py``); these options
-    are not."""
+    models are ported (``tests/test_torch_warm_start.py``), and so are
+    ``--type_constrain`` and ``--eval_dtype`` (below and
+    ``tests/test_torch_type_constrained.py``); these options are not."""
     root, _ = planted_dir
     with pytest.raises(NotPortedError, match="ROADMAP"):
         train_cli.main(_argv(root, tmp_path / "o", "--train_times", "1")
                        + extra)
     assert not (tmp_path / "o").exists()
+
+
+def test_cli_train_eval_dtype_bf16_matches_jax(planted_dir, tmp_path,
+                                              monkeypatch):
+    """``cli.train --eval_dtype bfloat16 --test_link_prediction`` closes
+    with TransR's grouped route projecting in bf16: the JAX package's
+    grouped route (interpret mode) at bf16 on the exported tables stays
+    within the reference's mean rank drift bound (5% of n_ent) of the
+    port's, and the summary's filtered MRR is the port's bf16 evaluation
+    of those tables."""
+    root, ds = planted_dir
+    out = tmp_path / "out"
+    summary = train_cli.main(_argv(root, out, "--train_times", "2",
+                                   "--eval_dtype", "bfloat16",
+                                   "--test_link_prediction"))
+    jp = {k: np.concatenate([v, np.zeros((1, v.shape[1]), v.dtype)])
+          for k, v in import_parameters(
+              str(out / "embedding.vec.json")).items()}
+    cfg = transr_cfg(eval_dtype="bfloat16")
+    idx = build_kg_index(ds, for_eval=True)
+    from openkeonspark_tpu_torch.eval import link_prediction
+    from openkeonspark_tpu_torch.ckpt import params_from_numpy
+    got = link_prediction(params_from_numpy(
+        jp, get_model("transr"), cfg, ds.n_ent, ds.n_rel, CPU), cfg, ds, idx)
+    assert got.filt_avg.mrr == pytest.approx(
+        summary["link_prediction"]["filtered_mrr"])
+    monkeypatch.setenv("OKST_PALLAS_INTERPRET", "1")
+    want = jax_link_prediction(jp, config_as(JaxConfig, cfg), ds, idx)
+    for k in want.ranks:
+        drift = np.abs(got.ranks[k] - want.ranks[k]).mean()
+        assert drift <= 0.05 * ds.n_ent, k
 
 
 def test_cli_train_cuda_without_card_raises(planted_dir, tmp_path,

@@ -231,10 +231,12 @@ def test_trace_dir_writes_the_second_epochs_trace(tmp_path, capsys):
 
 
 def test_refusals_follow_the_ported_options():
-    """``batch_number`` and ``trace_dir`` train; bfloat16 tables
-    (``dtype``) stay refused, and so does the host sampler."""
+    """``batch_number``, ``trace_dir`` and bfloat16 tables (``dtype``)
+    train; the host sampler stays refused, and so does a table dtype the
+    port does not take."""
     check_train_supported(Config(model="distmult", batch_number=1,
                                  trace_dir="t"))
-    for kw in ({"dtype": "bfloat16"}, {"sampler": "host"}):
+    check_train_supported(Config(model="complex", dtype="bfloat16"))
+    for kw in ({"dtype": "float16"}, {"sampler": "host"}):
         with pytest.raises(NotPortedError, match="ROADMAP"):
             check_train_supported(Config(model="complex", **kw))
