@@ -12,7 +12,8 @@ tables' dtype, as the reference's are. The incremental mode's warm start
 folder's checkpoint into the next batch's possibly larger state. The reference's orbax ``step_N``
 checkpoints need jax to read and are refused; the port evaluates from an
 export (``cli.train`` writes one every run) or from its own
-``torch.save`` file (:func:`save_params`)."""
+``torch.save`` file (:func:`save_params`). On a grid, rank 0 writes what
+a single-device run writes (:class:`CheckpointManager`)."""
 
 from __future__ import annotations
 
@@ -174,11 +175,19 @@ def _fit_rows(name: str, stored: torch.Tensor, like: torch.Tensor,
 
 class CheckpointManager:
     """Numbered ``step_N/`` checkpoints under a directory, keeping the last
-    ``keep`` (the reference's Saver kept 5)."""
+    ``keep`` (the reference's Saver kept 5).
 
-    def __init__(self, directory: str, keep: int = 5):
+    With ``sharding`` (``parallel.mesh.Sharding``, the state's row layout
+    on a grid) :meth:`save` is a collective: every rank calls it, rank 0
+    gathers the global tables, pad rows included, and writes the files a
+    single-device run writes. A grid restores with :meth:`restore` into a
+    full template and then keeps its rows (``parallel.shard_state``), so
+    either kind of run resumes from the other's checkpoint."""
+
+    def __init__(self, directory: str, keep: int = 5, sharding=None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.sharding = sharding
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -187,6 +196,11 @@ class CheckpointManager:
     def save(self, step: int, state, extra: Optional[dict] = None) -> None:
         """Save the train state (tables, optimizer state, step) and a JSON
         manifest holding ``extra``."""
+        if self.sharding is not None:
+            from openkeonspark_tpu_torch.parallel.mesh import unshard_state
+            state = unshard_state(state, self.sharding)
+            if self.sharding.grid.rank != 0:
+                return
         path = self._path(int(step))
         os.makedirs(path, exist_ok=True)
         tree = {"params": _to_cpu(state.params),

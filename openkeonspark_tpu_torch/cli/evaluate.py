@@ -22,7 +22,13 @@ DistMult and ComplEx rank through one matrix product per query chunk.
 ``--type_constrain`` adds the type-constrained table when the dataset
 directory holds ``type_constrain.txt``; ``--eval_dtype bfloat16`` scores
 the generic, bilinear and top-k paths in bf16 (the kernel routes rank in
-fp32 whatever it says, as the reference's do).
+fp32 whatever it says, as the reference's do). Run as one copy per rank
+with ``--coordinator host:port --num_processes N --process_id p``
+(``cli/launch.py``'s flags, NCCL on a card, gloo on the CPU) and
+``--mesh_data`` / ``--mesh_model``, it evaluates on the grid
+(``parallel/eval.py``: candidate rows over 'model', query chunks over
+'data'; classification through the sharded triple scorer); rank 0
+prints and answers the top-k queries.
 """
 
 from __future__ import annotations
@@ -32,10 +38,12 @@ import sys
 import torch
 
 from openkeonspark_tpu_torch.cli.args import build_parser, config_from_args
+from openkeonspark_tpu_torch.cli.launch import (join_process_group,
+                                                rank_device)
 from openkeonspark_tpu_torch.data.dataset import load_dataset
 from openkeonspark_tpu_torch.data.index import build_kg_index
 from openkeonspark_tpu_torch.ckpt import params_from_numpy, read_parameters
-from openkeonspark_tpu_torch.models.base import get_model
+from openkeonspark_tpu_torch.models.base import get_model, padded_rows
 from openkeonspark_tpu_torch.runtime import check_supported, resolve_device
 
 
@@ -56,7 +64,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = config_from_args(args)
     check_supported(cfg)
-    device = resolve_device(args.device)
+    device = rank_device(cfg, resolve_device(args.device))
+    join_process_group(cfg, device)
 
     ds = load_dataset(cfg.in_path)
     model = get_model(cfg.model)
@@ -64,28 +73,68 @@ def main(argv=None):
     tables, path = read_parameters(args.checkpoint)
     params = params_from_numpy(tables, model, cfg, ds.n_ent, ds.n_rel,
                                device)
-    print(f"restored {path} on {device}")
+    # a grid (cli/launch.py's process group) evaluates sharded: tables
+    # padded to the grid size, rows over 'model', queries over 'data'
+    sharding = None
+    if cfg.mesh_shape[0] * cfg.mesh_shape[1] != 1:
+        from openkeonspark_tpu_torch.parallel import Sharding, make_mesh
+        grid = make_mesh(cfg.mesh_shape, device)
+        if grid.size > 1:
+            sharding = Sharding(grid, flat=False)
+            specs = model.tables(cfg, ds.n_ent, ds.n_rel)
+            sharded = sharding.shard({k: torch.cat([v, v.new_zeros(
+                padded_rows(specs[k].rows, grid.size) - v.shape[0],
+                v.shape[1])]) for k, v in params.items()})
+    echo = print if sharding is None or sharding.grid.rank == 0 \
+        else (lambda *_: None)
+    echo(f"restored {path} on {device}")
+    if sharding is not None:
+        echo(f"eval mesh: ({grid.data}, {grid.model}) ({grid.size} "
+             f"devices, {grid.backend})")
 
     with torch.inference_mode():
         if args.link_prediction:
-            from openkeonspark_tpu_torch.eval import link_prediction
-            print(link_prediction(params, cfg, ds, index).format_table())
+            if sharding is not None:
+                from openkeonspark_tpu_torch.parallel.eval import \
+                    sharded_link_prediction
+                res = sharded_link_prediction(sharded, cfg, ds, index,
+                                              sharding)
+            else:
+                from openkeonspark_tpu_torch.eval import link_prediction
+                res = link_prediction(params, cfg, ds, index)
+            echo(res.format_table())
             if cfg.type_constrain:
                 from openkeonspark_tpu_torch.data import maybe_load
                 tc = maybe_load(cfg.in_path)
                 if tc is None:
-                    print("type_constrain.txt not found in dataset dir")
+                    echo("type_constrain.txt not found in dataset dir")
+                elif sharding is not None:
+                    from openkeonspark_tpu_torch.parallel.eval import \
+                        sharded_type_constrained_link_prediction
+                    rc = sharded_type_constrained_link_prediction(
+                        sharded, cfg, ds, index, tc, sharding)
+                    echo("type-constrained (sharded):")
+                    echo(rc.format_table())
                 else:
                     from openkeonspark_tpu_torch.eval import (
                         type_constrained_link_prediction)
                     rc = type_constrained_link_prediction(params, cfg, ds,
                                                           index, tc)
-                    print("type-constrained:")
-                    print(rc.format_table())
+                    echo("type-constrained:")
+                    echo(rc.format_table())
         if args.triple_classification:
             from openkeonspark_tpu_torch.eval import triple_classification
-            print("triple classification:",
-                  triple_classification(params, cfg, ds, index))
+            if sharding is not None:
+                from openkeonspark_tpu_torch.parallel.eval import \
+                    ShardedTripleScorer
+                out = triple_classification(
+                    sharded, cfg, ds, index,
+                    score_fn=ShardedTripleScorer(cfg, sharding))
+            else:
+                out = triple_classification(params, cfg, ds, index)
+            echo("triple classification:", out)
+        if sharding is not None and sharding.grid.rank != 0:
+            return   # the top-k queries run on rank 0's full tables
         if args.predict_tail:
             from openkeonspark_tpu_torch.eval import predict_tail_entity
             h, r = map(int, args.predict_tail.split(","))

@@ -13,9 +13,14 @@ writes a ``torch.profiler`` Chrome trace of the second epoch
 to the closing link prediction when the dataset directory holds
 ``type_constrain.txt``. The table dtype is the ``Config`` field ``dtype``
 (float32 or bfloat16; no flag sets it, in either package), reached through
-``run`` and ``train.loop.train``. Options the port does not cover yet
-(meshes and coordinators, ``--sampler host``, ``--exchange_hot_rows``)
-raise ``NotPortedError``.
+``run`` and ``train.loop.train``. ``--sampler host`` feeds the steps from
+the native host sampler (``sampling/host.py``). ``--mesh_data`` /
+``--mesh_model`` train on a grid of processes, one device each, through
+``cli/launch.py`` (which forms the process group; the flat grid's psum or
+exchange step, ``parallel/``); only rank 0 echoes and writes files. The
+hierarchical step's options (``--chips_per_host`` over hosts,
+``--exchange_hot_rows``, ``--exchange_capacity stats``) raise
+``NotPortedError`` (ROADMAP.md A12b).
 
 Usage:
     python -m openkeonspark_tpu_torch.cli.train --input data/FB15K \\
@@ -40,13 +45,24 @@ import sys
 import torch
 
 from openkeonspark_tpu_torch.cli.args import build_parser, config_from_args
+from openkeonspark_tpu_torch.cli.launch import (join_process_group,
+                                                rank_device)
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.data.dataset import load_dataset
 from openkeonspark_tpu_torch.data.index import build_kg_index
 from openkeonspark_tpu_torch.ckpt import (CheckpointManager,
                                           export_parameters, latest_step,
                                           warm_start_from, warm_start_path)
+from openkeonspark_tpu_torch.eval import (link_prediction,
+                                          triple_classification,
+                                          type_constrained_link_prediction)
 from openkeonspark_tpu_torch.models.base import get_model
+from openkeonspark_tpu_torch.parallel import (Sharding, build_train_step_for,
+                                              make_mesh, plan_sharded_step,
+                                              shard_state)
+from openkeonspark_tpu_torch.parallel.eval import (
+    ShardedTripleScorer, sharded_link_prediction,
+    sharded_type_constrained_link_prediction)
 from openkeonspark_tpu_torch.runtime import check_supported, resolve_device
 from openkeonspark_tpu_torch.train.loop import train
 from openkeonspark_tpu_torch.train.step import (check_train_supported,
@@ -56,7 +72,10 @@ from openkeonspark_tpu_torch.train.step import (check_train_supported,
 def run(cfg: Config, device: torch.device, export_format: str = "json",
         echo=print) -> dict:
     """Programmatic entry (the CLI is a thin wrapper); returns a summary
-    dict with the final metrics."""
+    dict with the final metrics. A ``cfg.mesh_shape`` of more than one
+    device trains on the grid of the initialised process group
+    (``cli/launch.py`` forms it; ``cfg.coordinator`` lets this function
+    form it): every rank calls ``run`` alike."""
     check_train_supported(cfg)
     if cfg.test_link_prediction or cfg.test_triple_classification:
         check_supported(cfg)
@@ -64,20 +83,29 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
     if cfg.batch_number is not None:
         data_dir = os.path.join(cfg.in_path, str(cfg.batch_number))
         out_dir = os.path.join(cfg.out_path, str(cfg.batch_number))
+    join_process_group(cfg, device)
     ds = load_dataset(data_dir)
     echo(f"dataset: {ds.n_ent} entities, {ds.n_rel} relations, "
          f"{ds.n_train} train / {ds.n_valid} valid / {ds.n_test} test")
     model = get_model(cfg.model)
     index = build_kg_index(ds, for_eval=(cfg.test_link_prediction or
                                          cfg.test_triple_classification))
+    grid = None
+    if cfg.mesh_shape[0] * cfg.mesh_shape[1] != 1:
+        grid = make_mesh(cfg.mesh_shape, device)
+        cfg = cfg.replace(mesh_shape=(grid.data, grid.model))
+    # pad to the grid size: both layouts divide it (flat needs rows %
+    # (D·M) == 0, the psum layout rows % M == 0)
     state = init_state(model, cfg, ds.n_ent, ds.n_rel,
-                       torch.Generator().manual_seed(cfg.seed), device)
+                       torch.Generator().manual_seed(cfg.seed), device,
+                       pad_to_multiple=grid.size if grid else 1)
 
     # crash recovery: a checkpoint in this run's output dir is resumed,
     # and only the remaining epochs run; the data order replays exactly
     # (group generators derive from the restored global step). An
     # incremental batch counts its epochs from the step it warm-started
-    # at, since the global step carries across batches.
+    # at, since the global step carries across batches. A grid restores
+    # the full tables, then keeps its rows.
     prev = warm_start_path(cfg.out_path, cfg.batch_number)
     ls = latest_step(out_dir) if out_dir else None
     if ls is not None:
@@ -94,16 +122,42 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
         state, _ = warm_start_from(state, prev, model, cfg)
         echo(f"warm start from {prev} (step {state.step})")
 
+    sharding = step_builder = None
+    if grid is not None and grid.size > 1:
+        # round the batch down to a grid multiple, so the exchange step's
+        # geometry (B/D divisible by M) holds (the reference's batch is a
+        # rounding too)
+        bs = cfg.resolve_batch_size(ds.n_train)
+        if bs % grid.size:
+            cfg = cfg.replace(batch_size=max(grid.size,
+                                             bs - bs % grid.size))
+        kind = plan_sharded_step(cfg, cfg.resolve_batch_size(ds.n_train),
+                                 grid)
+        sharding = Sharding(grid, flat=(kind != "psum"))
+        state = shard_state(state, grid, flat=sharding.flat)
+
+        def step_builder(model_, cfg_, batch_size, n_train):
+            return build_train_step_for(model_, cfg_, grid, batch_size,
+                                        n_train)
+
+        echo(f"mesh: data={grid.data} model={grid.model} ({grid.size} "
+             f"devices, {grid.backend}) step={kind}")
+
     result = train(cfg, ds, device, index=index, state=state,
-                   checkpoint_dir=out_dir, echo=echo)
+                   checkpoint_dir=out_dir, echo=echo,
+                   step_builder=step_builder, sharding=sharding)
     state = result.state
 
-    export_name = ("embedding.vec.json" if export_format == "json"
-                   else "embedding.npz")
-    export_parameters(state.params, model, cfg, ds.n_ent, ds.n_rel,
-                      os.path.join(out_dir, export_name), fmt=export_format)
+    full = (sharding.gather(state.params) if sharding is not None
+            else state.params)
+    if grid is None or grid.rank == 0:
+        export_name = ("embedding.vec.json" if export_format == "json"
+                       else "embedding.npz")
+        export_parameters(full, model, cfg, ds.n_ent, ds.n_rel,
+                          os.path.join(out_dir, export_name),
+                          fmt=export_format)
     # the final manifest records the vocabulary sizes
-    CheckpointManager(out_dir).save(
+    CheckpointManager(out_dir, sharding=sharding).save(
         state.step, state,
         extra={"n_ent": ds.n_ent, "n_rel": ds.n_rel, "model": cfg.model,
                "hidden_size": cfg.hidden_size,
@@ -118,8 +172,11 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
                                          for h in result.history]}
     with torch.inference_mode():
         if cfg.test_link_prediction and ds.n_test:
-            from openkeonspark_tpu_torch.eval import link_prediction
-            res = link_prediction(state.params, cfg, ds, index, log=echo)
+            if sharding is not None:
+                res = sharded_link_prediction(state.params, cfg, ds, index,
+                                              sharding, log=echo)
+            else:
+                res = link_prediction(state.params, cfg, ds, index, log=echo)
             echo(res.format_table())
             summary["link_prediction"] = {
                 "filtered_mrr": res.filt_avg.mrr,
@@ -134,10 +191,13 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
                          "constrained eval (generate with "
                          "tools/gen_type_constrain.py)")
                 else:
-                    from openkeonspark_tpu_torch.eval import (
-                        type_constrained_link_prediction)
-                    rc = type_constrained_link_prediction(
-                        state.params, cfg, ds, index, tc, log=echo)
+                    if sharding is not None:
+                        rc = sharded_type_constrained_link_prediction(
+                            state.params, cfg, ds, index, tc, sharding,
+                            log=echo)
+                    else:
+                        rc = type_constrained_link_prediction(
+                            state.params, cfg, ds, index, tc, log=echo)
                     echo("type-constrained:")
                     echo(rc.format_table())
                     summary["type_constrained"] = {
@@ -145,8 +205,10 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
                         "filtered_hits10": rc.filt_avg.hits10,
                     }
         if cfg.test_triple_classification and ds.n_valid and ds.n_test:
-            from openkeonspark_tpu_torch.eval import triple_classification
-            out = triple_classification(state.params, cfg, ds, index)
+            score_fn = (ShardedTripleScorer(cfg, sharding)
+                        if sharding is not None else None)
+            out = triple_classification(state.params, cfg, ds, index,
+                                        score_fn=score_fn)
             echo(f"triple classification: {out}")
             summary["triple_classification"] = out
     return summary
@@ -157,7 +219,8 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda or cpu)")
     args = p.parse_args(argv)
-    return run(config_from_args(args), resolve_device(args.device),
+    cfg = config_from_args(args)
+    return run(cfg, rank_device(cfg, resolve_device(args.device)),
                args.export_format)
 
 

@@ -4,13 +4,14 @@ validation split, accuracy reported on test.
 Counterpart of ``openkeonspark_tpu/eval/classification.py``. Negatives
 come from :func:`corrupt_split`, which draws from the same numpy stream as
 the reference's, so both packages classify the same negatives. Scoring runs
-through the torch model on the tables' device; the threshold sweep runs on
-the host, as in the reference."""
+through the torch model on the tables' device, or through a given
+``score_fn`` (the grid's ``parallel.eval.ShardedTripleScorer``); the
+threshold sweep runs on the host, as in the reference."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,17 +120,27 @@ def _best_threshold(pos: np.ndarray, neg: np.ndarray) -> Tuple[float, float]:
     return th, float(correct[best]) / n
 
 
+def _scorer(cfg: Config, ds: Dataset, score_fn: Optional[Callable]):
+    if score_fn is not None:
+        return score_fn
+    return lambda p, tr: score_triples(p, cfg, ds.n_ent, ds.n_rel, tr)
+
+
 def fit_thresholds(params: Dict[str, torch.Tensor], cfg: Config, ds: Dataset,
                    index: KGIndex, neg_triples: Optional[np.ndarray] = None,
-                   seed: int = 1234) -> Tuple[Thresholds, float]:
+                   seed: int = 1234, score_fn: Optional[Callable] = None
+                   ) -> Tuple[Thresholds, float]:
     """Fit per-relation thresholds on valid; returns (thresholds, valid
-    accuracy)."""
+    accuracy). ``score_fn(params, triples) -> scores`` replaces the
+    single-device scorer (``parallel.eval.ShardedTripleScorer`` for
+    row-sharded tables), as the reference's ``score_fn`` does."""
     if ds.valid is None or not len(ds.valid):
         raise ValueError("no valid split")
     if neg_triples is None:
         neg_triples = corrupt_split(ds.valid, index, ds.n_ent, seed)
-    pos_s = score_triples(params, cfg, ds.n_ent, ds.n_rel, ds.valid)
-    neg_s = score_triples(params, cfg, ds.n_ent, ds.n_rel, neg_triples)
+    score = _scorer(cfg, ds, score_fn)
+    pos_s = score(params, ds.valid)
+    neg_s = score(params, neg_triples)
 
     per_rel = np.zeros(ds.n_rel, np.float32)
     has_rel = np.zeros(ds.n_rel, bool)
@@ -151,18 +162,22 @@ def fit_thresholds(params: Dict[str, torch.Tensor], cfg: Config, ds: Dataset,
 def triple_classification(params: Dict[str, torch.Tensor], cfg: Config,
                           ds: Dataset, index: KGIndex,
                           thresholds: Optional[Thresholds] = None,
-                          seed: int = 1234) -> Dict[str, float]:
+                          seed: int = 1234,
+                          score_fn: Optional[Callable] = None
+                          ) -> Dict[str, float]:
     """Fit on valid (unless given thresholds); report accuracy / precision /
-    recall / F1 on test positives + one corrupted negative each."""
+    recall / F1 on test positives + one corrupted negative each.
+    ``score_fn`` as in :func:`fit_thresholds`."""
     if ds.test is None or not len(ds.test):
         raise ValueError("no test split")
     valid_acc = None
     if thresholds is None:
         thresholds, valid_acc = fit_thresholds(params, cfg, ds, index,
-                                               seed=seed)
+                                               seed=seed, score_fn=score_fn)
     neg = corrupt_split(ds.test, index, ds.n_ent, seed + 1)
-    pos_s = score_triples(params, cfg, ds.n_ent, ds.n_rel, ds.test)
-    neg_s = score_triples(params, cfg, ds.n_ent, ds.n_rel, neg)
+    score = _scorer(cfg, ds, score_fn)
+    pos_s = score(params, ds.test)
+    neg_s = score(params, neg)
     dec_pos = thresholds.decide(pos_s, ds.test[:, R])
     dec_neg = thresholds.decide(neg_s, neg[:, R])
     tp = int(dec_pos.sum())

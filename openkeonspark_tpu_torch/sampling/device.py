@@ -21,7 +21,7 @@ are not ported: the search runs ``iters`` plain rounds."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,15 @@ class SampledBatch:
     neg_h: Optional[torch.Tensor] = None
     neg_t: Optional[torch.Tensor] = None
     neg_rel: Optional[torch.Tensor] = None
+
+    FIELDS = ("h", "t", "r", "neg_h", "neg_t", "neg_rel")
+
+    def map(self, fn) -> "SampledBatch":
+        """The batch with ``fn`` applied to every field that is set (a row
+        slice, one step of a stacked group, a copy to a device)."""
+        return SampledBatch(**{
+            f: None if getattr(self, f) is None else fn(getattr(self, f))
+            for f in self.FIELDS})
 
 
 def flatten_reference_layout(b: SampledBatch) -> Dict[str, torch.Tensor]:
@@ -170,17 +179,26 @@ class DeviceSampler:
 
     def sample(self, batch_size: int, negative_ent: int, negative_rel: int,
                bern: bool, gen: Optional[torch.Generator] = None,
-               bits: Optional[torch.Tensor] = None) -> SampledBatch:
+               bits: Optional[torch.Tensor] = None,
+               partition: Optional[Tuple[int, int]] = None) -> SampledBatch:
         """Draw a batch: ``batch_size`` uniform positives and per-positive
         corrupted negatives. ``bits`` [B, 1 + 2·negE + negR] (values in
         [0, 2³²)) are drawn from ``gen`` unless given: column 0 picks the
         positive, columns 1..negE the Bernoulli flips, the next negE the
-        corrupted entities, the last negR the corrupted relations."""
+        corrupted entities, the last negR the corrupted relations.
+        ``partition=(start, size)`` draws the positives from the triples
+        ``[start, start + size)`` only (a data row's edge partition, the
+        JAX package's ``:244-248``)."""
         n_e, n_r = negative_ent, negative_rel
         if bits is None:
             bits = self.draw_bits(
                 (batch_size, self.bits_cols(n_e, n_r)), gen)
-        rec = self.trip[_mod_range(bits[:, 0], self.n_train)]
+        if partition is None:
+            idx = _mod_range(bits[:, 0], self.n_train)
+        else:
+            start, size = partition
+            idx = start + _mod_range(bits[:, 0], size)
+        rec = self.trip[idx]
         h, t, r = rec[:, _H], rec[:, _T], rec[:, _R]
 
         neg_h = neg_t = None

@@ -1,8 +1,8 @@
 """Training loop: epochs × batches with validation-accuracy early
 stopping, checkpoints, and a triples/s meter.
 
-Counterpart of ``openkeonspark_tpu/train/loop.py:36-256`` for the device
-sampler. Steps run in groups (``cfg.scan_group_size``), each group from
+Counterpart of ``openkeonspark_tpu/train/loop.py:36-256``. Steps run in
+groups (``cfg.scan_group_size``), each group from
 one draw of random bits made by a generator seeded from ``cfg.seed + 17``
 and the global step at which the group starts. A run resumed from a
 checkpoint therefore replays the data order of an uninterrupted one (the
@@ -17,8 +17,10 @@ Chrome trace, ``epoch1.pt.trace.json``, into ``trace_dir``: the analog of
 the JAX package's ``jax.profiler`` trace (``loop.py:175-206``). Every
 checkpoint's manifest records the vocabulary sizes (``n_ent``,
 ``n_rel``), so an incremental warm start can read them from any step.
-Not ported: the host sampler and ``exchange_hot_rows`` (refused by
-``check_train_supported``)."""
+The host sampler's groups come from ``sampling/host.py::HostPipeline``
+(``loop.py:112-131, 182-186``), a grid's steps from ``parallel/``. Not
+ported: ``exchange_hot_rows`` and the hierarchical step (refused by
+``check_train_supported``, ROADMAP.md A12b)."""
 
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from openkeonspark_tpu_torch.models.base import get_model
 from openkeonspark_tpu_torch.sampling.device import DeviceSampler
 from openkeonspark_tpu_torch.train.step import (TrainState,
                                                 build_group_runner,
+                                                build_host_scan_steps,
                                                 build_train_step,
                                                 check_train_supported,
                                                 init_state)
@@ -89,11 +92,19 @@ class _Logger:
             self.f.close()
 
 
-def group_generator(cfg: Config, step: int,
-                    device: torch.device) -> torch.Generator:
-    """The generator of the step group that starts at global ``step``."""
+def group_generator(cfg: Config, step: int, device: torch.device,
+                    data_row: int = 0, data_rows: int = 1
+                    ) -> torch.Generator:
+    """The generator of the step group that starts at global ``step``. On
+    a grid with more than one data row, row ``data_row`` folds its index
+    into the seed (the JAX package's ``fold_in(key, d)``), so rows draw
+    distinct bits and the ranks of one row the same; one data row draws
+    what one device draws."""
+    seed = ((cfg.seed + 17) << 32) + step
+    if data_rows > 1:
+        seed = (seed * 0x9E3779B97F4A7C15 + data_row + 1) % (1 << 63)
     gen = torch.Generator(device=device)
-    gen.manual_seed(((cfg.seed + 17) << 32) + step)
+    gen.manual_seed(seed)
     return gen
 
 
@@ -122,16 +133,29 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
           checkpoint_dir: Optional[str] = None,
           valid_fn: Optional[Callable] = None,
           epoch_callback: Optional[Callable] = None,
-          echo: Callable[[str], None] = print) -> TrainResult:
+          echo: Callable[[str], None] = print,
+          step_builder: Optional[Callable] = None,
+          sharding=None) -> TrainResult:
     """Run the training schedule on ``device``.
 
     - ``state``: resume / warm-start state (default: a fresh one from
       ``cfg.seed``); its tables are updated in place.
     - ``valid_fn(state) -> float``: early-stop metric, higher is better
-      (default: triple-classification accuracy on the valid split).
+      (default: triple-classification accuracy on the valid split,
+      through ``parallel.eval.ShardedTripleScorer`` on a grid).
     - ``checkpoint_dir``: ``step_N`` checkpoints on improvement and at the
       end.
-    - ``epoch_callback(epoch, state)``: called after every epoch."""
+    - ``epoch_callback(epoch, state)``: called after every epoch.
+    - ``step_builder(model, cfg, batch_size, n_train) -> step_fn`` and
+      ``sharding`` (``parallel.mesh.Sharding``, the state's row layout):
+      the grid's step (``parallel.exchange.build_train_step_for``). Every
+      rank calls ``train`` alike; only rank 0 writes the log, the trace
+      and the checkpoints (which it gathers from every rank).
+
+    ``cfg.sampler == 'host'`` feeds the steps from the native host sampler
+    (``sampling/host.py``): stacked groups of batches, the worker seeded
+    ``cfg.seed + step`` at the state's step, so a resumed run replays the
+    data order; on a grid each data row takes its slice of every batch."""
     check_train_supported(cfg)
     model = get_model(cfg.model)
     if index is None:
@@ -140,45 +164,77 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
     if state is None:
         state = init_state(model, cfg, ds.n_ent, ds.n_rel,
                            torch.Generator().manual_seed(cfg.seed), device)
+    grid = sharding.grid if sharding is not None else None
+    lead = grid is None or grid.rank == 0
+    data_row, data_rows = (grid.d_idx, grid.data) if grid else (0, 1)
 
-    sampler = DeviceSampler.build(ds, index, device)
-    step_fn = build_train_step(model, cfg, batch_size)
+    step_fn = (step_builder(model, cfg, batch_size, ds.n_train)
+               if step_builder is not None else None)
     sps = max(1, min(cfg.scan_group_size(batch_size), cfg.nbatches))
     n_full, rem = divmod(cfg.nbatches, sps)
-    groups = [(build_group_runner(step_fn, sps), sps)] * n_full
-    if rem:
-        groups.append((build_group_runner(step_fn, rem), rem))
+    sizes = [sps] * n_full + ([rem] if rem else [])
+    pipe = None
+    if cfg.sampler == "host":
+        from openkeonspark_tpu_torch.sampling.host import (HostPipeline,
+                                                           HostSampler)
+        batch_step = None
+        if step_fn is not None:
+            b_local = step_fn.bits_shape[0]
+            lo = data_row * b_local
+            batch_step = lambda st, b: step_fn.batch_step(  # noqa: E731
+                st, b.map(lambda x: x[lo:lo + b_local]))
+        host_run = build_host_scan_steps(model, cfg, batch_step)
+        pipe = HostPipeline(HostSampler(ds, index,
+                                        n_threads=cfg.work_threads),
+                            batch_size, cfg.negative_ent, cfg.negative_rel,
+                            cfg.bern, seed=cfg.seed + state.step,
+                            group_sizes=sizes, device=device)
+        groups = [(lambda st, _s, _g: host_run(st, pipe.next()), size)
+                  for size in sizes]
+        sampler = None
+    else:
+        sampler = DeviceSampler.build(ds, index, device)
+        step_fn = step_fn or build_train_step(model, cfg, batch_size)
+        runners = {size: build_group_runner(step_fn, size)
+                   for size in set(sizes)}
+        groups = [(runners[size], size) for size in sizes]
 
     if cfg.valid_every and valid_fn is None and ds.valid is not None \
             and len(ds.valid):
         eval_index = index if index.hr_all is not None else \
             build_kg_index(ds, for_eval=True)
+        score_fn = None
+        if sharding is not None:
+            from openkeonspark_tpu_torch.parallel.eval import \
+                ShardedTripleScorer
+            score_fn = ShardedTripleScorer(cfg, sharding)
 
         def valid_fn(st):
             from openkeonspark_tpu_torch.eval.classification import \
                 fit_thresholds
             _, acc = fit_thresholds(st.params, cfg, ds, eval_index,
-                                    seed=cfg.seed + 1)
+                                    seed=cfg.seed + 1, score_fn=score_fn)
             return acc
 
     ckpt = None
     if checkpoint_dir:
         from openkeonspark_tpu_torch.ckpt import CheckpointManager
-        ckpt = CheckpointManager(checkpoint_dir)
+        ckpt = CheckpointManager(checkpoint_dir, sharding=sharding)
 
-    log = _Logger(cfg, echo)
+    log = _Logger(cfg if lead else cfg.replace(log_path=""), echo)
     result = TrainResult(state=state)
     best_acc, best_epoch, bad_checks = -np.inf, None, 0
     vocab = {"n_ent": ds.n_ent, "n_rel": ds.n_rel}
     prof = None
     try:
         for epoch in range(cfg.train_times):
-            if cfg.trace_dir and epoch == 1:
+            if cfg.trace_dir and epoch == 1 and lead:
                 prof = _start_trace(device)
             t0 = _clock(device)
             losses, weights = [], []
             for run, size in groups:
-                gen = group_generator(cfg, state.step, device)
+                gen = group_generator(cfg, state.step, device, data_row,
+                                      data_rows)
                 state, loss = run(state, sampler, gen)
                 losses.append(loss)
                 weights.append(size)
@@ -239,5 +295,7 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
     finally:
         if prof is not None:
             prof.stop()
+        if pipe is not None:
+            pipe.close()
         log.close()
     return result

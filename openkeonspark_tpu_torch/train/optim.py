@@ -16,13 +16,15 @@ Row scatters go through :func:`scatter_add_rows`: rows at least
 ``WIDE_SCATTER_MIN_WIDTH`` floats wide (TransR's ``transfer_matrix``) take
 kernel B5 (``ops/scatter.py``), the sorted-run scatter that the JAX
 package runs as its Pallas kernel; narrower rows take a masked
-``index_add_``.
+``index_add_``. SGD sums a step's deltas first for tables of at most
+``SMALL_TABLE_ROWS`` rows, as the reference's one-hot product sums them.
 
 Unlike the JAX package, which returns new tables, the port updates tables
 and optimizer state in place: a dense ``transfer_matrix`` update would
 otherwise allocate and write a second 107.7 MB table every step at the
-TransR config. The JAX package's one-hot MXU route for small tables is a
-TPU scatter workaround and is not ported.
+TransR config. The JAX package's one-hot product for small tables is
+ported as what it computes (one fp32 sum of a step's deltas), not as a
+matrix product.
 
 Tables may be bf16 (``cfg.dtype``). Every update is then cast to the
 table's dtype before it is added, and added in that dtype, as the
@@ -48,6 +50,11 @@ from openkeonspark_tpu_torch.ops.scatter import (scatter_add_rows_sorted,
 # rows at least this wide take kernel B5, as the JAX package's take its
 # Pallas kernel (optim.py:56-70)
 WIDE_SCATTER_MIN_WIDTH = 4096
+# SGD adds the sum of a step's deltas to narrower tables of at most this
+# many rows once, in fp32 rounded once to the table's dtype, as the JAX
+# package's one-hot product does (optim.py:51-55, 88-94); the exchange
+# step's small-table path takes the same bound (parallel/exchange.py)
+SMALL_TABLE_ROWS = 512
 
 
 class DenseUpdate(NamedTuple):
@@ -141,7 +148,16 @@ class SparseSGD:
                 continue
             # one scatter per table, not one per id stream
             ids, g = _merged(pairs)
-            scatter_add_rows(t, ids, -self.lr * g, plain)
+            delta = (-self.lr * g).to(t.dtype)
+            if t.shape[0] <= SMALL_TABLE_ROWS and not use_wide_kernel(t):
+                # the reference's one-hot product: the table-dtype deltas
+                # summed in fp32, added once
+                total = torch.zeros(t.shape, dtype=torch.float32,
+                                    device=t.device)
+                scatter_add_rows(total, ids, delta)
+                t.add_(total.to(t.dtype))
+                continue
+            scatter_add_rows(t, ids, delta, plain)
         return params, state
 
 

@@ -22,7 +22,7 @@ kernel B5 (``optim.scatter_add_rows``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -31,6 +31,7 @@ from openkeonspark_tpu_torch.models.base import (Gather, KGEModel, Params,
                                                  init_tables, pnorm)
 from openkeonspark_tpu_torch.ops.grouped import grouped_project, run_offsets
 from openkeonspark_tpu_torch.runtime import (NotPortedError,
+                                             check_grid_supported,
                                              check_model_ported, torch_dtype)
 from openkeonspark_tpu_torch.sampling.device import (DeviceSampler,
                                                      SampledBatch)
@@ -65,28 +66,34 @@ def _n_neg(batch: SampledBatch) -> Tuple[int, int]:
 
 
 def gather_slots_structured(model: KGEModel, params: Params,
-                            batch: SampledBatch) -> Tuple[Dict, int]:
+                            batch: SampledBatch,
+                            take: Optional[Callable] = None
+                            ) -> Tuple[Dict, int]:
     """Slot rows in the reference layout (positives, then negative segment
     k at rows ``B·(1+k)``), gathering each distinct id stream once:
     relation rows are gathered for the positives only and, when every
     segment shares r, kept as one ``[B, d]`` block that the scorer
-    broadcasts; entity rows are reused across relation negatives."""
+    broadcasts; entity rows are reused across relation negatives.
+    ``take(table, ids)`` gathers rows (default ``params[table][ids]``; the
+    sharded step's assembles them from row-sharded tables)."""
+    if take is None:
+        take = lambda table, ids: params[table][ids]  # noqa: E731
     nE, nR = _n_neg(batch)
     slots = {}
     for slot, table, anchor in model.gathers():
-        T = params[table]
         if anchor == "r":
-            base = T[batch.r]
+            base = take(table, batch.r)
             if nR == 0:
                 slots[slot] = base
                 continue
             parts = [base] * (1 + nE)
-            parts += [T[batch.neg_rel[:, k]] for k in range(nR)]
+            parts += [take(table, batch.neg_rel[:, k]) for k in range(nR)]
         else:
             ids, neg = ((batch.h, batch.neg_h) if anchor == "h"
                         else (batch.t, batch.neg_t))
-            base = T[ids]
-            parts = [base] + [T[neg[:, k]] for k in range(nE)] + [base] * nR
+            base = take(table, ids)
+            parts = ([base] + [take(table, neg[:, k]) for k in range(nE)]
+                     + [base] * nR)
         slots[slot] = torch.cat(parts) if len(parts) > 1 else parts[0]
     return slots, nE + nR
 
@@ -242,21 +249,15 @@ def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
 
 
 def check_train_supported(cfg: Config) -> None:
-    """Refuse the training options the port does not cover. TransR's
-    grouped route with bf16 tables is refused as the reference refuses it:
-    its grouped step raises on a bf16 table (a dtype mismatch in its
-    projection kernel's padding)."""
+    """Refuse the training options the port does not cover: those of the
+    hierarchical route and hot-row replication (ROADMAP.md A12b,
+    ``runtime.check_grid_supported``). TransR's grouped route with bf16
+    tables is refused as the reference refuses it: its grouped step raises
+    on a bf16 table (a dtype mismatch in its projection kernel's
+    padding)."""
     check_model_ported(cfg.model)
     torch_dtype(cfg.dtype)
-    refused = {"sampler='host'": cfg.sampler == "host",
-               "a mesh": cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1,
-               "a coordinator": bool(cfg.coordinator)
-               or cfg.num_processes > 1,
-               "exchange_hot_rows": cfg.exchange_hot_rows > 0}
-    for what, on in refused.items():
-        if on:
-            raise NotPortedError(f"training with {what} is not yet ported; "
-                                 "see ROADMAP.md queue A")
+    check_grid_supported(cfg)
     if use_grouped_transr(cfg) and cfg.dtype != "float32":
         raise NotPortedError(
             f"TransR's grouped step with dtype {cfg.dtype!r} tables: the "
@@ -271,16 +272,13 @@ def build_train_step(model: KGEModel, cfg: Config, batch_size: int
     the step's u32 draws ``[batch_size, 1 + 2·negE + negR]`` (int64). The
     state's tables are updated in place."""
     check_train_supported(cfg)
-    opt = make_optimizer(cfg)
+    batch_step = build_batch_step(model, cfg)
 
     def step_fn(state: TrainState, sampler: DeviceSampler,
                 bits: torch.Tensor):
-        batch = sampler.sample(batch_size, cfg.negative_ent,
-                               cfg.negative_rel, cfg.bern, bits=bits)
-        loss, updates = loss_and_row_grads(model, cfg, state.params, batch)
-        params, opt_state = opt.apply(state.params, state.opt_state,
-                                      updates, state.step)
-        return TrainState(params, opt_state, state.step + 1), loss
+        return batch_step(state, sampler.sample(
+            batch_size, cfg.negative_ent, cfg.negative_rel, cfg.bern,
+            bits=bits))
 
     step_fn.bits_shape = (batch_size,
                           DeviceSampler.bits_cols(cfg.negative_ent,
@@ -302,6 +300,43 @@ def build_group_runner(step_fn: Callable, steps: int) -> Callable:
             state, loss = step_fn(state, sampler, bits[s])
             losses.append(loss)
         # a bf16 table's loss is bf16; the mean is fp32
+        return state, torch.stack(losses).float().mean()
+
+    return run
+
+
+def build_batch_step(model: KGEModel, cfg: Config) -> Callable:
+    """One step on a given batch: ``(state, batch) → (state, loss)``."""
+    opt = make_optimizer(cfg)
+
+    def batch_step(state: TrainState, batch: SampledBatch):
+        loss, updates = loss_and_row_grads(model, cfg, state.params, batch)
+        params, opt_state = opt.apply(state.params, state.opt_state,
+                                      updates, state.step)
+        return TrainState(params, opt_state, state.step + 1), loss
+
+    return batch_step
+
+
+def build_host_scan_steps(model: KGEModel, cfg: Config,
+                          batch_step: Optional[Callable] = None
+                          ) -> Callable:
+    """The S steps of one stacked batch group (``[S, …]`` from
+    ``sampling/host.py::HostPipeline``): ``(state, batches) → (state, mean
+    loss)``, the counterpart of the JAX package's ``lax.scan`` over the
+    group (``train/step.py:346-363``). Each step is ``batch_step`` (default
+    :func:`build_batch_step`'s, which goes through
+    :func:`loss_and_row_grads` as the device-sampler step does); a grid
+    passes its own."""
+    check_train_supported(cfg)
+    if batch_step is None:
+        batch_step = build_batch_step(model, cfg)
+
+    def run(state: TrainState, batches: SampledBatch):
+        losses = []
+        for s in range(batches.h.shape[0]):
+            state, loss = batch_step(state, batches.map(lambda x: x[s]))
+            losses.append(loss)
         return state, torch.stack(losses).float().mean()
 
     return run

@@ -26,7 +26,6 @@ from openkeonspark_tpu.eval import predict_tail_entity as jax_predict_tail
 from openkeonspark_tpu.models import get_model as jax_get_model
 from openkeonspark_tpu.train.step import init_state
 from openkeonspark_tpu_torch.cli import evaluate
-from openkeonspark_tpu_torch.runtime import NotPortedError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -76,8 +75,13 @@ def test_cli_cuda_without_card_raises(exported, monkeypatch):
 @pytest.mark.parametrize("extra", [["--num_processes", "2"],
                                    ["--mesh_model", "2"]])
 def test_cli_refuses_unported_options(exported, extra):
+    """Grid evaluation is ported (``tests/test_torch_parallel_eval.py``),
+    but it needs a process group: more than one process without
+    ``--coordinator``, and a grid without a process group, are
+    refused."""
     root = exported[0]
-    with pytest.raises(NotPortedError, match="ROADMAP"):
+    with pytest.raises((ValueError, RuntimeError),
+                       match="coordinator|process group"):
         evaluate.main(_argv(root, "--device", "cpu", "--link_prediction")
                       + extra)
 
@@ -192,7 +196,8 @@ def test_port_imports_no_jax():
     """In a fresh interpreter whose import system refuses ``jax``,
     ``jaxlib`` and the JAX package ``openkeonspark_tpu`` (the exact
     top-level name: ``openkeonspark_tpu_torch`` stays importable), every
-    module of the port and ``chip_smoke`` (its ``main`` is guarded) load."""
+    module of the port, ``chip_smoke`` (its ``main`` is guarded) and the
+    multi-process tests' rank module ``tests/torch_dist_worker.py`` load."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "BLOCKED = ('jax', 'jaxlib', 'openkeonspark_tpu')\n"
@@ -208,9 +213,11 @@ def test_port_imports_no_jax():
         "    pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "spec = importlib.util.spec_from_file_location('chip_smoke',\n"
-        "                                              'chip_smoke.py')\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "for name, path in (('chip_smoke', 'chip_smoke.py'),\n"
+        "                   ('torch_dist_worker',\n"
+        "                    'tests/torch_dist_worker.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "for name in BLOCKED:\n"
         "    try:\n"
         "        importlib.import_module(name)\n"
@@ -224,7 +231,13 @@ def test_port_imports_no_jax():
         "        'openkeonspark_tpu_torch.models.complexe',\n"
         "        'openkeonspark_tpu_torch.compat',\n"
         "        'openkeonspark_tpu_torch.eval.type_constrained',\n"
-        "        'openkeonspark_tpu_torch.data.type_constrain'} <= set(names)\n"
+        "        'openkeonspark_tpu_torch.data.type_constrain',\n"
+        "        'openkeonspark_tpu_torch.sampling.host',\n"
+        "        'openkeonspark_tpu_torch.parallel.mesh',\n"
+        "        'openkeonspark_tpu_torch.parallel.sharded',\n"
+        "        'openkeonspark_tpu_torch.parallel.exchange',\n"
+        "        'openkeonspark_tpu_torch.parallel.eval',\n"
+        "        'openkeonspark_tpu_torch.cli.launch'} <= set(names)\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

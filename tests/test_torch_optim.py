@@ -146,6 +146,26 @@ def test_aggregate_duplicates():
                             [0.0, 0.0], [0.0, 0.0], [0.0, 0.0]]
 
 
+@pytest.mark.parametrize("rows", [optim.SMALL_TABLE_ROWS,
+                                  optim.SMALL_TABLE_ROWS + 1])
+def test_sgd_adds_a_small_tables_summed_deltas_once(rows):
+    """SGD adds the fp32 sum of a step's deltas to a table of at most
+    ``SMALL_TABLE_ROWS`` rows once (the reference's one-hot product), and
+    to a larger one delta by delta: two deltas under half an ulp of 1.0
+    tell the two apart. An id past the table is dropped."""
+    one, d = torch.ones(()), torch.tensor(4e-8)
+    summed, each = one + (d + d), one + d + d
+    assert summed != each
+    t = torch.ones(rows, 2)
+    optim.SparseSGD(Config(alpha=1.0)).apply(
+        {"t": t}, {}, {"t": [(torch.tensor([3, 3, rows]),
+                              torch.full((3, 2), -4e-8))]}, 0)
+    want = summed if rows <= optim.SMALL_TABLE_ROWS else each
+    assert torch.equal(t[3], want.expand(2))
+    t[3] = 1.0
+    assert torch.equal(t, torch.ones(rows, 2))
+
+
 def test_grouped_transr_adam_matches_generic_route():
     """Adam on the grouped TransR route (``transfer_matrix`` as a
     ``DenseUpdate``) and on the generic route (row pairs through the

@@ -276,15 +276,22 @@ def test_cli_train_transr_relation_negatives(planted_dir, tmp_path, capsys,
 
 @pytest.mark.parametrize("extra", [
     ["--exchange_hot_rows", "4", "--exchange_capacity", "stats"],
-    ["--sampler", "host"], ["--mesh_model", "2"], ["--num_processes", "2"],
-    ["--coordinator", "localhost:1"]])
+    ["--exchange_capacity", "stats"],
+    ["--mesh_data", "2", "--mesh_model", "2", "--chips_per_host", "2"],
+    ["--mesh_data", "4", "--mesh_model", "2", "--chips_per_host", "4"],
+    ["--mesh_data", "2", "--mesh_model", "1", "--chips_per_host", "1"]])
 def test_cli_train_refuses_unported_options(planted_dir, tmp_path, extra):
     """``--batch_number``, ``--trace_dir`` and the DistMult and ComplEx
     models are ported (``tests/test_torch_warm_start.py``), and so are
     ``--type_constrain`` and ``--eval_dtype`` (below and
-    ``tests/test_torch_type_constrained.py``); these options are not."""
+    ``tests/test_torch_type_constrained.py``), the host sampler and the
+    flat grid (``tests/test_torch_host_sampler.py``,
+    ``tests/test_torch_launch.py``); the hierarchical step's options (a
+    grid spanning hosts of ``--chips_per_host`` devices, hot rows, the
+    degree-table capacities) are not (ROADMAP.md A12b), and are refused
+    before any process group forms or file is written."""
     root, _ = planted_dir
-    with pytest.raises(NotPortedError, match="ROADMAP"):
+    with pytest.raises(NotPortedError, match="A12b"):
         train_cli.main(_argv(root, tmp_path / "o", "--train_times", "1")
                        + extra)
     assert not (tmp_path / "o").exists()

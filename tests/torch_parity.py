@@ -187,3 +187,50 @@ def rotate_scores64(q, table, sign: float) -> np.ndarray:
     res = q[:, None, :] + sign * e[None]
     d = res.shape[-1] // 2
     return np.sqrt(res[..., :d] ** 2 + res[..., d:] ** 2 + 1e-12).sum(-1)
+
+
+def jax_row_draws(sampler, cfg, data_rows: int, n_train: int, b_local: int):
+    """``rows(key)``: each data row's batch (numpy fields) as the JAX
+    package's sharded steps draw it inside ``shard_map``
+    (``parallel/sharded.py:95-104``): ``fold_in(key, d)`` when there is
+    more than one data row, the row's triple slice as ``partition``."""
+    import jax
+    import jax.numpy as jnp
+
+    @jax.jit
+    def draw(smp, key, d, start, size):
+        kd = jax.random.fold_in(key, d) if data_rows > 1 else key
+        return smp.sample(kd, b_local, cfg.negative_ent, cfg.negative_rel,
+                          cfg.bern, partition=(start, size))
+
+    def rows(key):
+        out = []
+        for d in range(data_rows):
+            base = n_train // data_rows
+            start = d * base
+            size = n_train - start if d == data_rows - 1 else base
+            b = draw(sampler, key, jnp.int32(d), jnp.int32(start),
+                     jnp.int32(size))
+            out.append({f: np.asarray(getattr(b, f)) for f in
+                        ("h", "t", "r", "neg_h", "neg_t", "neg_rel")
+                        if getattr(b, f) is not None})
+        return out
+
+    return rows
+
+
+def assert_tables_match(want: dict, got: dict, m: dict = None, msg="",
+                        rtol=1e-6, atol=1e-7, prefix="p_"):
+    """Tables ``got[prefix + name]`` within rtol / atol of ``want[name]``;
+    with Adam (``m``, the first moments), cells whose moment is
+    cancellation noise (|m| < 1e-5, where m/√v is ±1 whatever the noise)
+    only to the size of one update, as ``tests/test_exchange.py``'s
+    ``assert_match``."""
+    for k, a in want.items():
+        a, b = np.asarray(a), np.asarray(got[prefix + k])
+        noise = (np.zeros(a.shape, bool) if m is None
+                 else np.abs(np.asarray(m[k])) < 1e-5)
+        np.testing.assert_allclose(b[~noise], a[~noise], rtol=rtol,
+                                   atol=atol, err_msg=f"{msg}/{k}")
+        np.testing.assert_allclose(b[noise], a[noise], atol=0.5,
+                                   err_msg=f"{msg}/{k} (noise cells)")
