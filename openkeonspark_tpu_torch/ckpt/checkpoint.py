@@ -13,7 +13,10 @@ folder's checkpoint into the next batch's possibly larger state. The reference's
 checkpoints need jax to read and are refused; the port evaluates from an
 export (``cli.train`` writes one every run) or from its own
 ``torch.save`` file (:func:`save_params`). On a grid, rank 0 writes what
-a single-device run writes (:class:`CheckpointManager`)."""
+a single-device run writes (:class:`CheckpointManager`), with its own
+replica of each ``#hot`` companion of hot-row replication
+(``parallel/hot.py``). Export and the readers take the model's tables
+only, never a companion."""
 
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import (Params, padded_rows,
                                                  strip_padding)
+from openkeonspark_tpu_torch.parallel.mesh import HOT_SUFFIX
 
 # checkpoint-directory files the evaluator looks for, in order
 EXPORT_NAMES = ("embedding.npz", "embedding.vec.json", "params.pt")
@@ -231,11 +235,19 @@ class CheckpointManager:
                 "(the JAX package's orbax step_N checkpoints need jax; "
                 "evaluate from its embedding export instead)")
         raw = torch.load(state_file, map_location="cpu", weights_only=True)
-        params = {k: _fit_rows(k, raw["params"][k], v, logical_rows)
-                  for k, v in state.params.items()}
-        opt_state = {s: {k: _fit_rows(k, raw["opt_state"][s][k], v,
-                                      logical_rows)
-                         for k, v in slots.items()}
+
+        def fit(stored, tree):
+            # a checkpoint written without hot rows lacks the #hot
+            # companions: they restore as zeros and sync_hot_cache fills
+            # them (the JAX restore raises a KeyError,
+            # ckpt/checkpoint.py:125-131)
+            return {k: (torch.zeros_like(v) if k.endswith(HOT_SUFFIX)
+                        and k not in stored
+                        else _fit_rows(k, stored[k], v, logical_rows))
+                    for k, v in tree.items()}
+
+        params = fit(raw["params"], state.params)
+        opt_state = {s: fit(raw["opt_state"][s], slots)
                      for s, slots in state.opt_state.items()}
         manifest = {}
         mpath = os.path.join(path, MANIFEST_NAME)

@@ -95,8 +95,11 @@ def main(argv=None) -> dict:
                   f"{dist.get_backend()} on {device.type}, mesh=({d},{m})",
                   flush=True)
         from openkeonspark_tpu_torch.cli.train import run
-        return run(cfg, device, args.export_format,
-                   echo=print if rank0 else (lambda *_: None))
+        summary = run(cfg, device, args.export_format,
+                      echo=print if rank0 else (lambda *_: None))
+        # no rank tears the group down while a peer still uses it
+        dist.barrier()
+        return summary
     finally:
         dist.destroy_process_group()
 

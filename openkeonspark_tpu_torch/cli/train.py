@@ -17,10 +17,12 @@ to the closing link prediction when the dataset directory holds
 the native host sampler (``sampling/host.py``). ``--mesh_data`` /
 ``--mesh_model`` train on a grid of processes, one device each, through
 ``cli/launch.py`` (which forms the process group; the flat grid's psum or
-exchange step, ``parallel/``); only rank 0 echoes and writes files. The
-hierarchical step's options (``--chips_per_host`` over hosts,
-``--exchange_hot_rows``, ``--exchange_capacity stats``) raise
-``NotPortedError`` (ROADMAP.md A12b).
+exchange step, ``parallel/``); only rank 0 echoes and writes files. With
+``--chips_per_host`` a grid that spans hosts of that many devices runs the
+hierarchical step (a (host, data, model) grid, ``parallel/hier.py``);
+``--exchange_hot_rows`` replicates the hottest entity rows and
+``--exchange_capacity stats`` sizes the exchange buckets from the degree
+tables (``parallel/hot.py``).
 
 Usage:
     python -m openkeonspark_tpu_torch.cli.train --input data/FB15K \\
@@ -58,8 +60,9 @@ from openkeonspark_tpu_torch.eval import (link_prediction,
                                           type_constrained_link_prediction)
 from openkeonspark_tpu_torch.models.base import get_model
 from openkeonspark_tpu_torch.parallel import (Sharding, build_train_step_for,
-                                              make_mesh, plan_sharded_step,
-                                              shard_state)
+                                              hier_shape, make_mesh,
+                                              plan_sharded_step, shard_state)
+from openkeonspark_tpu_torch.parallel.hot import degree_stats
 from openkeonspark_tpu_torch.parallel.eval import (
     ShardedTripleScorer, sharded_link_prediction,
     sharded_type_constrained_link_prediction)
@@ -92,7 +95,14 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
                                          cfg.test_triple_classification))
     grid = None
     if cfg.mesh_shape[0] * cfg.mesh_shape[1] != 1:
-        grid = make_mesh(cfg.mesh_shape, device)
+        d, m = cfg.mesh_shape
+        if d == -1 and m > 0 and torch.distributed.is_initialized():
+            d = max(1, torch.distributed.get_world_size() // m)
+        # a grid spanning hosts of chips_per_host devices runs the
+        # hierarchical step (cli/train.py:99-131)
+        hshape = (hier_shape((d, m), cfg.chips_per_host)
+                  if cfg.sharded_step == "exchange" and d > 0 else None)
+        grid = make_mesh(hshape or (d, m), device)
         cfg = cfg.replace(mesh_shape=(grid.data, grid.model))
     # pad to the grid size: both layouts divide it (flat needs rows %
     # (D·M) == 0, the psum layout rows % M == 0)
@@ -131,17 +141,21 @@ def run(cfg: Config, device: torch.device, export_format: str = "json",
         if bs % grid.size:
             cfg = cfg.replace(batch_size=max(grid.size,
                                              bs - bs % grid.size))
-        kind = plan_sharded_step(cfg, cfg.resolve_batch_size(ds.n_train),
-                                 grid)
+        bs = cfg.resolve_batch_size(ds.n_train)
+        kind = plan_sharded_step(cfg, bs, grid)
         sharding = Sharding(grid, flat=(kind != "psum"))
         state = shard_state(state, grid, flat=sharding.flat)
-
-        def step_builder(model_, cfg_, batch_size, n_train):
-            return build_train_step_for(model_, cfg_, grid, batch_size,
-                                        n_train)
-
+        step_fn = build_train_step_for(model, cfg, grid, bs, ds.n_train,
+                                       degrees=degree_stats(ds))
+        step_builder = lambda *_: step_fn  # noqa: E731
+        mb = getattr(step_fn, "microbatches", cfg.exchange_microbatches)
         echo(f"mesh: data={grid.data} model={grid.model} ({grid.size} "
-             f"devices, {grid.backend}) step={kind}")
+             f"devices, {grid.backend}"
+             + (f", {grid.hosts} hosts" if grid.hosts else "")
+             + f") step={kind}"
+             + (f" microbatches={mb} (of {cfg.exchange_microbatches}: "
+                "the per-rank batch does not divide)"
+                if mb < cfg.exchange_microbatches else ""))
 
     result = train(cfg, ds, device, index=index, state=state,
                    checkpoint_dir=out_dir, echo=echo,

@@ -19,7 +19,9 @@ slice of every global chunk (``:193-197``):
   of all data rows.
 
 Type-constrained link prediction shards the per-relation masks along the
-entity axis with the rows (``:58-63``). :class:`ShardedTripleScorer`
+entity axis with the rows (``:58-63``). Both read the sharded tables
+only: the replicated ``#hot`` companions of hot-row replication are
+dropped first (``:48-53``). :class:`ShardedTripleScorer`
 scores id triples against either layout (``:337-402``) and plugs into
 ``eval/classification.py``'s ``score_fn``."""
 
@@ -39,6 +41,7 @@ from openkeonspark_tpu_torch.eval.link_prediction import (
 from openkeonspark_tpu_torch.eval.scoring import (CANDIDATE_TABLES,
                                                   build_queries, score_block)
 from openkeonspark_tpu_torch.models.base import get_model
+from openkeonspark_tpu_torch.parallel.hot import drop_hot
 from openkeonspark_tpu_torch.parallel.mesh import (DATA, MODEL, Sharding,
                                                    all_gather, all_reduce)
 from openkeonspark_tpu_torch.parallel.sharded import masked_take
@@ -119,7 +122,7 @@ def _sharded_ranks(params, cfg: Config, ds: Dataset, index: KGIndex,
     if triples is None or len(triples) == 0:
         raise ValueError("no test triples")
     grid = sharding.grid
-    params = model_layout(params, sharding)
+    params = model_layout(drop_hot(params), sharding)
     guard_finite_params(params)
     dev = grid.device
     D, d = grid.data, grid.d_idx

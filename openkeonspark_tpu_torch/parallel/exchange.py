@@ -38,10 +38,17 @@ Tables and optimizer slots are row-sharded over all ``N = D·M`` ranks
   The fallbacks and the dense gradient stay in the tables' and the
   gradients' dtypes, as the JAX step's do.
 
+- **Capacities** (``cfg.exchange_capacity``): ``'uniform'`` sizes every
+  bucket by the birthday estimate; ``'stats'`` sizes the entity tables'
+  buckets from the dataset's degree tables (``parallel/hot.py``,
+  ``:348-358``), at the first call, from the state's own local row count
+  (the JAX step guesses it from the entity count, ``:353``, which misses
+  the pad row and any padding past the grid).
+
 With the fp32 wire the step equals the psum step up to the order in which
-duplicate ids are summed (``tests/test_torch_exchange.py``).
-``exchange_capacity='stats'`` needs ``parallel/hot.py`` (ROADMAP.md A12b)
-and is refused (``runtime.check_grid_supported``)."""
+duplicate ids are summed (``tests/test_torch_exchange.py``). A (host,
+data, model) grid runs the two-stage step of ``parallel/hier.py``
+(:func:`build_train_step_for`)."""
 
 from __future__ import annotations
 
@@ -111,11 +118,13 @@ def dedup_ids(ids: torch.Tensor, sentinel: int
 
 
 def _bucket(ids: torch.Tensor, n_parts: int, cap: int, lp: int,
-            valid: torch.Tensor):
+            valid: torch.Tensor, owner: Optional[torch.Tensor] = None):
     """(routed [U] bool, slot [U] in [0, N·C], N·C the sink, overflow
-    count): owner ``ids // lp``, position by order within the owner
-    (``:148-168``)."""
-    owner = torch.clamp(ids // lp, 0, n_parts - 1)
+    count): owner ``ids // lp`` unless ``owner`` is given (the
+    hierarchical step buckets by relay position and owner host), position
+    by order within the owner (``:146-168``)."""
+    if owner is None:
+        owner = torch.clamp(ids // lp, 0, n_parts - 1)
     onehot = ((owner[:, None] == torch.arange(n_parts, device=ids.device))
               & valid[:, None])
     pos = ((torch.cumsum(onehot.long(), 0) - 1) * onehot).sum(1)
@@ -231,9 +240,18 @@ def _gather_plan(model: KGEModel, batch: SampledBatch):
 
 
 def plan_sharded_step(cfg: Config, batch_size: int, grid: Grid) -> str:
-    """``'exchange'`` or ``'psum'``: the step a (cfg, batch, grid) runs
-    (``:289-311``; the hierarchical kind is refused before it is asked).
-    The state must be sharded to match: ``flat=(kind != 'psum')``."""
+    """``'hier'``, ``'exchange'`` or ``'psum'``: the step a (cfg, batch,
+    grid) runs (``:289-311``); a (host, data, model) grid runs the
+    hierarchical step or raises. The state must be sharded to match:
+    ``flat=(kind != 'psum')``."""
+    if grid.hosts is not None:
+        b_local = max(1, batch_size // grid.data)
+        if cfg.sharded_step != "exchange" or b_local % grid.model:
+            raise ValueError(
+                "a (host, data, model) grid needs sharded_step='exchange' "
+                f"with a per-data-shard batch ({b_local}) divisible by the "
+                f"model axis ({grid.model})")
+        return "hier"
     if grid.size == 1:
         return "psum"
     b_local = max(1, batch_size // grid.data)
@@ -248,17 +266,41 @@ def _max_over_grid(grid: Grid, count: torch.Tensor) -> int:
                           op=torch.distributed.ReduceOp.MAX))
 
 
+def microbatches(cfg: Config, per_rank: int) -> int:
+    """The microbatches a step of ``per_rank`` positives a rank runs:
+    ``cfg.exchange_microbatches`` lowered until it divides (``:272-275``;
+    an odd count runs one). The step exposes it as ``microbatches``."""
+    mb = cfg.exchange_microbatches
+    while per_rank % mb:
+        mb -= 1
+    return mb
+
+
+def check_degrees(cfg: Config, degrees) -> None:
+    """The degree tables a step needs for hot rows or ``'stats'``
+    capacities (``parallel/hot.py::degree_stats``)."""
+    if degrees is None and (cfg.exchange_hot_rows
+                            or cfg.exchange_capacity == "stats"):
+        raise ValueError("exchange_hot_rows and exchange_capacity='stats' "
+                         "need the dataset's degree tables: pass "
+                         "degrees=parallel.hot.degree_stats(ds)")
+
+
 def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
                               batch_size: int, n_train: int,
-                              opt=None) -> Callable:
+                              opt=None, degrees=None) -> Callable:
     """``(state, sampler, bits) → (state, global loss)`` over the flat
     grid; ``step.batch_step(state, batch)`` runs it on a given data-row
     batch (``:314-575``). ``batch_size`` is global; each data row draws
     ``batch_size // D`` positives, which must divide by M. State from
     ``shard_state(state, grid, flat=True)``, tables padded to a multiple
     of D·M. ``opt``: the optimizer that applies the owners' updates
-    (``make_optimizer(cfg)`` by default)."""
+    (``make_optimizer(cfg)`` by default); ``degrees``
+    (``parallel/hot.py::degree_stats``) for ``'stats'`` capacities.
+    ``step.microbatches`` is the count the step runs; ``step.stats_caps``
+    the degree-table capacities, set at the first call."""
     check_train_supported(cfg)
+    check_degrees(cfg, degrees)
     n_grid = grid.size
     b_local = max(1, batch_size // grid.data)
     if n_grid == 1:
@@ -269,9 +311,7 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
             f"exchange step needs per-data-shard batch ({b_local}) divisible"
             f" by the model axis ({grid.model}); pick batch_size accordingly"
             " or use sharded_step='psum'")
-    mb = cfg.exchange_microbatches
-    while b_local // grid.model % mb:
-        mb -= 1
+    mb = microbatches(cfg, b_local // grid.model)
     b_sub = b_local // grid.model // mb
     partition = data_partition(n_train, grid)
     opt = opt or make_optimizer(cfg)
@@ -283,8 +323,22 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
     # times each exact fallback ran (the same on every rank)
     fallbacks = {"gather": 0, "update": 0}
 
+    def stats_caps(P) -> Dict[str, Dict[str, int]]:
+        """The degree-table capacities at the state's local rows."""
+        if cfg.exchange_capacity != "stats":
+            return {}
+        from openkeonspark_tpu_torch.parallel.hot import (entity_table_names,
+                                                          flat_stats_caps)
+        lp = P[entity_table_names(model)[0]].shape[0]
+        if step_fn.stats_caps is None or step_fn.stats_caps[0] != lp:
+            step_fn.stats_caps = (lp, flat_stats_caps(
+                model, cfg, degrees, b_sub, lp, n_grid)
+                if lp * n_grid > SMALL_TABLE_ROWS else {})
+        return step_fn.stats_caps[1]
+
     def batch_step(state: TrainState, batch: SampledBatch):
         P = state.params
+        caps = stats_caps(P)
         # one all_gather of each small table serves every microbatch
         small_full = {t: all_gather(P[t].to(wire_dt), grid, GRID).to(
             P[t].dtype) for t in sorted({tb for _, tb, _ in model.gathers()})
@@ -315,10 +369,11 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
                 if dedup_gather:
                     uniq, u_idx = dedup_ids(ids, sentinel=rows_phys)
                     valid = uniq < rows_phys
-                    cap = capacity_for(
+                    cap = (max(8, min(caps[table]["g"], uniq.shape[0]))
+                           if table in caps else capacity_for(
                         uniq.shape[0], n_grid, slack,
                         expected=expected_unique(ids.shape[0], rows_phys),
-                        local_rows=lp)
+                        local_rows=lp))
                     req = uniq
                 else:
                     u_idx = None
@@ -375,6 +430,8 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
                     valid = torch.ones(uid.shape, dtype=torch.bool,
                                        device=uid.device)
                     cap = capacity_for(uid.shape[0], n_grid, slack)
+                if table in caps:
+                    cap = max(8, min(caps[table]["u"], uid.shape[0]))
                 lid, rg, ovf_ids, novf = _route_update(
                     grid, lp, uid, ug, valid, cap, wire_dt)
                 main_pairs.setdefault(table, []).append((lid, rg))
@@ -418,13 +475,23 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
         cfg.negative_ent, cfg.negative_rel))
     step_fn.batch_step = batch_step
     step_fn.fallbacks = fallbacks
+    step_fn.microbatches = mb
+    step_fn.stats_caps = None      # (lp, caps), set at the first call
     return step_fn
 
 
 def build_train_step_for(model: KGEModel, cfg: Config, grid: Grid,
-                         batch_size: int, n_train: int) -> Callable:
-    """The grid's step per :func:`plan_sharded_step`."""
-    if plan_sharded_step(cfg, batch_size, grid) == "exchange":
+                         batch_size: int, n_train: int, opt=None,
+                         degrees=None) -> Callable:
+    """The grid's step per :func:`plan_sharded_step` (``:577-592``)."""
+    kind = plan_sharded_step(cfg, batch_size, grid)
+    if kind == "hier":
+        from openkeonspark_tpu_torch.parallel.hier import \
+            build_hier_train_step
+        return build_hier_train_step(model, cfg, grid, batch_size, n_train,
+                                     opt, degrees)
+    if kind == "exchange":
         return build_exchange_train_step(model, cfg, grid, batch_size,
-                                         n_train)
-    return build_sharded_train_step(model, cfg, grid, batch_size, n_train)
+                                         n_train, opt, degrees)
+    return build_sharded_train_step(model, cfg, grid, batch_size, n_train,
+                                    opt)

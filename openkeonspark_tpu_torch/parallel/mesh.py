@@ -1,5 +1,6 @@
-"""The (data, model) grid over ``torch.distributed``, the tables' row
-layouts on it, and the collectives the sharded steps use.
+"""The (data, model) and (host, data, model) grids over
+``torch.distributed``, the tables' row layouts on them, and the
+collectives the sharded steps use.
 
 Counterpart of ``openkeonspark_tpu/parallel/mesh.py``. The JAX package's
 ``Mesh`` with axes ``('data', 'model')`` becomes a :class:`Grid` of
@@ -13,6 +14,18 @@ both axes over the whole grid. Every row and column group is made with
 collective at all, so a (1, 1) grid needs no process group and computes
 what one device computes.
 
+A ``(host, data, model)`` grid (``make_mesh((H, Di, M))``, the
+hierarchical step's, ``parallel/hier.py``) numbers its ranks host-major,
+``n = h·L + d·M + m`` with ``L = Di·M`` ranks a host: exactly the rank
+order of the flat ``(H·Di, M)`` grid. So :class:`Grid` keeps that flat
+view (``data = H·Di``, data row ``n // M``, the batch of the flat grid's
+row) and adds ``hosts``, with two more groups: ``'local'``, the L ranks
+of one host (the JAX axes ``('data', 'model')`` of ``hier.py:84``), and
+``'host'``, the H ranks at one local position (the JAX axis
+``'host'``). On one machine the "hosts" are groups of ranks; the backend
+picks the links (NVLink inside a node, the network between nodes), so
+nothing here prices them.
+
 The backend is the caller's: ``nccl`` for a card per rank, ``gloo`` for
 the CPU (and for ranks that share one card, which NCCL refuses).
 ``cli/launch.py`` initialises the process group; nothing here picks
@@ -24,10 +37,13 @@ reductions run in the tensor's own dtype.
 Layouts (:class:`Sharding`, the counterpart of ``table_spec``,
 ``mesh.py:81-91``): ``flat=False`` shards rows over ``'model'``
 (replicated over ``'data'``, the psum step's layout), ``flat=True`` over
-the whole grid (the exchange step's); either way a rank holds contiguous
+the whole grid (the exchange steps'); either way a rank holds contiguous
 rows ``[i·Lp, (i+1)·Lp)``, ``Lp = rows / parts``, of every table and
 optimizer slot, and nothing else (:func:`shard_state`,
-``mesh.py:103-124``). The sampler's triple store is replicated: every
+``mesh.py:103-124``). The replicated ``#hot`` companions of hot-row
+replication (``parallel/hot.py``) are the exception: every rank holds
+all K rows of each, and a layout neither shards nor gathers them
+(``mesh.py:109-117``). The sampler's triple store is replicated: every
 rank builds the same sampler on its device (``shard_sampler``,
 ``:127-138``, has no counterpart)."""
 
@@ -40,6 +56,8 @@ import torch
 import torch.distributed as dist
 
 DATA, MODEL = "data", "model"
+LOCAL, HOST = "local", "host"   # a (host, data, model) grid's extra groups
+HOT_SUFFIX = "#hot"             # a replicated companion's key suffix
 
 # all_gather into one tensor (torch renamed it; the old name stays)
 _all_gather_single = (getattr(dist, "all_gather_single", None)
@@ -52,7 +70,7 @@ def hier_shape(mesh_shape: Tuple[int, int],
     """(host, data, model) factorisation of a (data, model) grid that spans
     hosts of ``chips_per_host`` devices, or None when it fits one host or
     does not factor (``mesh.py:63-78``). Such a grid runs the hierarchical
-    step, which is not ported (``runtime.check_grid_supported``)."""
+    step (``parallel/hier.py``)."""
     d, m = mesh_shape
     n = d * m
     if not chips_per_host or chips_per_host <= 0 or n <= chips_per_host:
@@ -64,14 +82,17 @@ def hier_shape(mesh_shape: Tuple[int, int],
 
 @dataclass
 class Grid:
-    """This process's place on the (data, model) grid and its groups."""
+    """This process's place on the grid and its groups. ``data`` counts
+    every data row of the grid (``H·Di`` on a (host, data, model) grid);
+    ``hosts`` is H there, None on a (data, model) grid."""
 
     data: int
     model: int
-    rank: int                      # n = d·M + m
+    rank: int                      # n = d·M + m (= h·L + d_local·M + m)
     device: torch.device
     backend: Optional[str] = None  # None: one rank, no process group
     groups: Dict[str, object] = field(default_factory=dict)
+    hosts: Optional[int] = None
 
     @property
     def size(self) -> int:
@@ -85,37 +106,59 @@ class Grid:
     def m_idx(self) -> int:
         return self.rank % self.model
 
+    @property
+    def local(self) -> int:
+        """Ranks a host (L = Di·M; the whole grid on a (data, model)
+        grid)."""
+        return self.size // (self.hosts or 1)
+
     def axis_size(self, axis: str) -> int:
-        return {DATA: self.data, MODEL: self.model}.get(axis, self.size)
+        return {DATA: self.data, MODEL: self.model, LOCAL: self.local,
+                HOST: self.hosts or 1}.get(axis, self.size)
 
     def group(self, axis: str):
         """The process group of ``axis``: ``'model'`` (this data row),
-        ``'data'`` (this model column) or ``'grid'`` (every rank)."""
+        ``'data'`` (this model column), ``'local'`` (this host's ranks),
+        ``'host'`` (this local position on every host) or ``'grid'``
+        (every rank)."""
         return self.groups.get(axis)
 
 
-def make_mesh(shape: Tuple[int, int], device: torch.device) -> Grid:
-    """The grid of ``shape = (data, model)`` over the initialised default
-    process group (``shape[0] == -1``: every remaining rank), with this
-    process's rank; a (1, 1) grid needs none."""
-    d, m = shape
+def make_mesh(shape: Tuple[int, ...], device: torch.device) -> Grid:
+    """The grid of ``shape = (data, model)``, or ``(host, data, model)``,
+    over the initialised default process group (``shape[0] == -1``: every
+    remaining rank), with this process's rank; a (1, 1) grid needs
+    none."""
+    hier = len(shape) == 3
     if not dist.is_initialized():
-        if d in (1, -1) and m == 1:
+        if not hier and shape[0] in (1, -1) and shape[1] == 1:
             return Grid(1, 1, 0, device)
         raise RuntimeError(f"a {shape} grid needs an initialised process "
                            "group (cli/launch.py, or "
                            "torch.distributed.init_process_group)")
     world = dist.get_world_size()
-    if d == -1:
-        d = max(1, world // max(m, 1))
-    if d * m != world:
-        raise ValueError(f"grid ({d}, {m}) needs {d * m} ranks, the process "
-                         f"group has {world}")
-    grid = Grid(d, m, dist.get_rank(), device, dist.get_backend())
+    rest = 1
+    for s in shape[1:]:
+        rest *= s
+    shape = ((max(1, world // max(rest, 1)) if shape[0] == -1 else shape[0]),
+             *shape[1:])
+    if shape[0] * rest != world:
+        raise ValueError(f"grid {shape} needs {shape[0] * rest} ranks, the "
+                         f"process group has {world}")
+    hosts = shape[0] if hier else None
+    d, m = (shape[0] * shape[1], shape[2]) if hier else shape
+    grid = Grid(d, m, dist.get_rank(), device, dist.get_backend(),
+                hosts=hosts)
+    n_loc = grid.local
     # every rank creates every group, in one order (new_group's contract)
-    for axis, members in (
-            (MODEL, [[r * m + c for c in range(m)] for r in range(d)]),
-            (DATA, [[r * m + c for r in range(d)] for c in range(m)])):
+    axes = [(MODEL, [[r * m + c for c in range(m)] for r in range(d)]),
+            (DATA, [[r * m + c for r in range(d)] for c in range(m)])]
+    if hier:
+        axes += [(LOCAL, [[h * n_loc + i for i in range(n_loc)]
+                          for h in range(hosts)]),
+                 (HOST, [[h * n_loc + i for h in range(hosts)]
+                         for i in range(n_loc)])]
+    for axis, members in axes:
         if len(members[0]) == 1:
             continue
         for ranks in members:
@@ -209,9 +252,13 @@ class Sharding:
 
     def shard(self, tree: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
-        """This rank's rows of every table of a full (replicated) dict."""
+        """This rank's rows of every table of a full (replicated) dict;
+        ``#hot`` companions stay whole."""
         out = {}
         for k, v in tree.items():
+            if k.endswith(HOT_SUFFIX):
+                out[k] = v.clone()
+                continue
             start, lp = self.rows(v.shape[0])
             out[k] = v[start:start + lp].clone()
         return out
@@ -219,15 +266,18 @@ class Sharding:
     def gather(self, tree: Dict[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
         """The full tables from every rank's rows (a collective: every
-        rank calls it, every rank gets them)."""
-        return {k: all_gather(v, self.grid, self.axis)
+        rank calls it, every rank gets them); ``#hot`` companions are this
+        rank's replica."""
+        return {k: v if k.endswith(HOT_SUFFIX)
+                else all_gather(v, self.grid, self.axis)
                 for k, v in tree.items()}
 
 
 def shard_state(state, grid: Grid, flat: bool = False):
-    """Each rank keeps only its rows of every table and optimizer slot;
-    the step counter is shared. Table rows must divide over the layout's
-    parts (pad to the grid size, which suits both)."""
+    """Each rank keeps only its rows of every table and optimizer slot
+    (and the whole of every ``#hot`` companion); the step counter is
+    shared. Table rows must divide over the layout's parts (pad to the
+    grid size, which suits both)."""
     sh = Sharding(grid, flat)
     return type(state)(params=sh.shard(state.params),
                        opt_state={s: sh.shard(v)

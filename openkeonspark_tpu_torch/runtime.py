@@ -70,27 +70,6 @@ def check_supported(cfg: Config) -> None:
     torch_dtype(cfg.eval_dtype)
 
 
-def check_grid_supported(cfg: Config) -> None:
-    """Refuse the multi-device options of ROADMAP.md A12b: hot-row
-    replication (``exchange_hot_rows``), the degree-table capacities
-    (``exchange_capacity='stats'``, which need ``parallel/hot.py``) and a
-    grid spanning hosts of ``chips_per_host`` devices (the hierarchical
-    step, ``parallel/hier.py``). The flat grid runs."""
-    from openkeonspark_tpu_torch.parallel.mesh import hier_shape
-    refused = {
-        "exchange_hot_rows": cfg.exchange_hot_rows > 0,
-        "exchange_capacity='stats'": cfg.exchange_capacity == "stats",
-        f"chips_per_host={cfg.chips_per_host} (a grid of {cfg.mesh_shape} "
-        "spanning hosts, the hierarchical step)":
-            cfg.sharded_step == "exchange" and cfg.chips_per_host is not None
-            and hier_shape(cfg.mesh_shape, cfg.chips_per_host) is not None,
-    }
-    for what, on in refused.items():
-        if on:
-            raise NotPortedError(f"training with {what} is not yet ported; "
-                                 "see ROADMAP.md A12b")
-
-
 @contextlib.contextmanager
 def full_fp32_matmul():
     """fp32 matrix products on the card in full fp32 (no TF32), whatever

@@ -18,9 +18,11 @@ the JAX package's ``jax.profiler`` trace (``loop.py:175-206``). Every
 checkpoint's manifest records the vocabulary sizes (``n_ent``,
 ``n_rel``), so an incremental warm start can read them from any step.
 The host sampler's groups come from ``sampling/host.py::HostPipeline``
-(``loop.py:112-131, 182-186``), a grid's steps from ``parallel/``. Not
-ported: ``exchange_hot_rows`` and the hierarchical step (refused by
-``check_train_supported``, ROADMAP.md A12b)."""
+(``loop.py:112-131, 182-186``), a grid's steps from ``parallel/``. With
+``cfg.exchange_hot_rows`` the replicated ``#hot`` companions are refilled
+from the tables (``parallel/hot.py::sync_hot_cache``, a collective on a
+grid) after init, warm start or restore, before the first step
+(``loop.py:134-139``)."""
 
 from __future__ import annotations
 
@@ -164,6 +166,10 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
     if state is None:
         state = init_state(model, cfg, ds.n_ent, ds.n_rel,
                            torch.Generator().manual_seed(cfg.seed), device)
+    if cfg.exchange_hot_rows:
+        from openkeonspark_tpu_torch.parallel.hot import (degree_stats,
+                                                          sync_hot_cache)
+        state = sync_hot_cache(state, model, degree_stats(ds), sharding)
     grid = sharding.grid if sharding is not None else None
     lead = grid is None or grid.rank == 0
     data_row, data_rows = (grid.d_idx, grid.data) if grid else (0, 1)

@@ -16,8 +16,15 @@ Row scatters go through :func:`scatter_add_rows`: rows at least
 ``WIDE_SCATTER_MIN_WIDTH`` floats wide (TransR's ``transfer_matrix``) take
 kernel B5 (``ops/scatter.py``), the sorted-run scatter that the JAX
 package runs as its Pallas kernel; narrower rows take a masked
-``index_add_``. SGD sums a step's deltas first for tables of at most
-``SMALL_TABLE_ROWS`` rows, as the reference's one-hot product sums them.
+``index_add_``. SGD sums a step's deltas per row in fp32 first and adds
+each row's sum once for narrow tables of at most ``DENSE_MAX_ELEMS``
+elements: for tables of at most ``SMALL_TABLE_ROWS`` rows that is what
+the reference's one-hot product computes; for larger ones the reference
+scatters the deltas one by one. Added one by one through the card's
+atomics, in no fixed order, a Zipf hub's thousands of deltas each round
+at the table's magnitude, and two grid steps that must agree within rtol
+1e-6 / atol 1e-7 (``chip_smoke.py``'s grid phases) did so only by
+chance; summed first, they round at the sum's.
 
 Unlike the JAX package, which returns new tables, the port updates tables
 and optimizer state in place: a dense ``transfer_matrix`` update would
@@ -50,11 +57,14 @@ from openkeonspark_tpu_torch.ops.scatter import (scatter_add_rows_sorted,
 # rows at least this wide take kernel B5, as the JAX package's take its
 # Pallas kernel (optim.py:56-70)
 WIDE_SCATTER_MIN_WIDTH = 4096
-# SGD adds the sum of a step's deltas to narrower tables of at most this
-# many rows once, in fp32 rounded once to the table's dtype, as the JAX
-# package's one-hot product does (optim.py:51-55, 88-94); the exchange
-# step's small-table path takes the same bound (parallel/exchange.py)
+# the exchange steps' small-table path (parallel/exchange.py): tables of
+# at most this many physical rows, the JAX package's one-hot bound
+# (optim.py:51-55, 88-94)
 SMALL_TABLE_ROWS = 512
+# SGD sums a step's deltas in a dense fp32 table and adds it once for
+# narrow tables up to this many elements, and the lazy optimizers sum
+# their gradients the same way (a 256 MB scratch table at the cap)
+DENSE_MAX_ELEMS = 64 * 1024 * 1024
 
 
 class DenseUpdate(NamedTuple):
@@ -149,9 +159,9 @@ class SparseSGD:
             # one scatter per table, not one per id stream
             ids, g = _merged(pairs)
             delta = (-self.lr * g).to(t.dtype)
-            if t.shape[0] <= SMALL_TABLE_ROWS and not use_wide_kernel(t):
-                # the reference's one-hot product: the table-dtype deltas
-                # summed in fp32, added once
+            if t.numel() <= DENSE_MAX_ELEMS and not use_wide_kernel(t):
+                # the table-dtype deltas summed per row in fp32, each row's
+                # sum added once
                 total = torch.zeros(t.shape, dtype=torch.float32,
                                     device=t.device)
                 scatter_add_rows(total, ids, delta)
@@ -185,9 +195,8 @@ class _LazyRowOptimizer:
     state_slots: Tuple[str, ...] = ()
     slot_init: Dict[str, float] = {}
 
-    # tables up to this many elements take the dense-G path (its scratch
-    # table costs rows·dim f32, 256 MB at the cap)
-    DENSE_MOMENT_MAX_ELEMS = 64 * 1024 * 1024
+    # tables up to this many elements take the dense-G path
+    DENSE_MOMENT_MAX_ELEMS = DENSE_MAX_ELEMS
 
     def init(self, params) -> dict:
         return {s: {k: torch.full_like(v, self.slot_init.get(s, 0.0),

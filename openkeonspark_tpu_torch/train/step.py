@@ -31,7 +31,6 @@ from openkeonspark_tpu_torch.models.base import (Gather, KGEModel, Params,
                                                  init_tables, pnorm)
 from openkeonspark_tpu_torch.ops.grouped import grouped_project, run_offsets
 from openkeonspark_tpu_torch.runtime import (NotPortedError,
-                                             check_grid_supported,
                                              check_model_ported, torch_dtype)
 from openkeonspark_tpu_torch.sampling.device import (DeviceSampler,
                                                      SampledBatch)
@@ -51,11 +50,16 @@ def init_state(model: KGEModel, cfg: Config, n_ent: int, n_rel: int,
                gen: torch.Generator, device: torch.device,
                pad_to_multiple: int = 1) -> TrainState:
     """Fresh tables in ``cfg.dtype`` from ``gen`` (a seeded CPU
-    generator, so one seed gives the same tables on every device) and the
-    optimizer's state (the reference's ``train/step.py:45-50``)."""
+    generator, so one seed gives the same tables on every device), the
+    zeroed ``#hot`` companions when ``cfg.exchange_hot_rows`` is set (on
+    one device too, so checkpoints match; ``parallel/hot.py``), and the
+    optimizer's state (the reference's ``train/step.py:42-53``)."""
     params = init_tables(gen, model.tables(cfg, n_ent, n_rel), device,
                          pad_to_multiple=pad_to_multiple,
                          dtype=torch_dtype(cfg.dtype))
+    if cfg.exchange_hot_rows:
+        from openkeonspark_tpu_torch.parallel.hot import init_hot_params
+        params = init_hot_params(params, model, cfg, n_ent)
     return TrainState(params=params, opt_state=make_optimizer(cfg).init(params),
                       step=0)
 
@@ -249,15 +253,12 @@ def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
 
 
 def check_train_supported(cfg: Config) -> None:
-    """Refuse the training options the port does not cover: those of the
-    hierarchical route and hot-row replication (ROADMAP.md A12b,
-    ``runtime.check_grid_supported``). TransR's grouped route with bf16
-    tables is refused as the reference refuses it: its grouped step raises
-    on a bf16 table (a dtype mismatch in its projection kernel's
-    padding)."""
+    """Refuse the training options the port does not cover. TransR's
+    grouped route with bf16 tables is refused as the reference refuses
+    it: its grouped step raises on a bf16 table (a dtype mismatch in its
+    projection kernel's padding)."""
     check_model_ported(cfg.model)
     torch_dtype(cfg.dtype)
-    check_grid_supported(cfg)
     if use_grouped_transr(cfg) and cfg.dtype != "float32":
         raise NotPortedError(
             f"TransR's grouped step with dtype {cfg.dtype!r} tables: the "

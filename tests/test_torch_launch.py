@@ -40,7 +40,8 @@ def _free_port() -> int:
 def _ranks(module, n, argv):
     """Start ``n`` ranks of ``python -m module`` joined at a free port."""
     port = _free_port()
-    env = {**os.environ, "PYTHONPATH": REPO}
+    # one thread a rank: the ranks share the host's cores
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     return [subprocess.Popen(
         [sys.executable, "-m", module, "--coordinator", f"localhost:{port}",
          "--num_processes", str(n), "--process_id", str(pid), *argv],
@@ -131,6 +132,43 @@ def test_grid_evaluation_prints_the_single_device_table(kg, tmp_path):
     assert want.format_table() in o0, o0[-2000:]
     assert "triple classification: {'accuracy':" in o0
     assert "averaged(filter)" not in o1
+
+
+def test_hier_grid_with_hot_rows(tmp_path):
+    """Four ranks as two hosts of two (``--chips_per_host 2``) train
+    through the hierarchical step with hot rows and degree-table
+    capacities, validate and rank on the grid (the companions dropped);
+    rank 0's checkpoint holds its replica of the ``#hot`` companions,
+    equal to the tables' rows at the hot ids, and the export equals the
+    checkpoint's tables."""
+    import torch
+    from openkeonspark_tpu_torch.parallel.hot import (choose_hot_ids,
+                                                      degree_stats)
+    data, out = str(tmp_path / "kg"), tmp_path / "o"
+    save_dataset(random_kg(n_ent=600, n_rel=6, n_triples=3000, n_valid=25,
+                           n_test=25, seed=4), data)
+    (o0, *_), = _wait([_ranks("openkeonspark_tpu_torch.cli.launch", 4, [
+        "--input", data, "--output", str(out), "--mesh_data", "2",
+        "--mesh_model", "2", "--chips_per_host", "2", "--exchange_hot_rows",
+        "64", "--exchange_capacity", "stats", "--train_times", "2",
+        "--valid_every", "1", "--test_link_prediction", "--opt_method",
+        "adagrad", *TRAIN])])
+    assert "(4 devices, gloo, 2 hosts) step=hier" in o0, o0[-2000:]
+    assert "valid_accuracy" in o0 and "averaged(filter)" in o0, o0[-2000:]
+    step = latest_step(str(out))
+    assert step == 14
+    raw = torch.load(str(out / f"step_{step}" / "state.pt"),
+                     weights_only=True)
+    ids = torch.from_numpy(choose_hot_ids(*degree_stats(
+        load_dataset(data))[:2], 64)).long()
+    for tree in (raw["params"], raw["opt_state"]["accum"]):
+        assert tree["ent_embeddings#hot"].shape == (64, 8)
+        assert torch.equal(tree["ent_embeddings#hot"],
+                           tree["ent_embeddings"][ids])
+    tables, _ = read_parameters(str(out))
+    assert sorted(tables) == ["ent_embeddings", "rel_embeddings"]
+    for k, v in tables.items():
+        np.testing.assert_array_equal(v, raw["params"][k][:len(v)].numpy())
 
 
 def test_world_of_one(kg, tmp_path, capsys):

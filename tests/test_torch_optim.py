@@ -148,22 +148,25 @@ def test_aggregate_duplicates():
 
 @pytest.mark.parametrize("rows", [optim.SMALL_TABLE_ROWS,
                                   optim.SMALL_TABLE_ROWS + 1])
-def test_sgd_adds_a_small_tables_summed_deltas_once(rows):
-    """SGD adds the fp32 sum of a step's deltas to a table of at most
-    ``SMALL_TABLE_ROWS`` rows once (the reference's one-hot product), and
-    to a larger one delta by delta: two deltas under half an ulp of 1.0
-    tell the two apart. An id past the table is dropped."""
+def test_sgd_adds_a_small_tables_summed_deltas_once(rows, monkeypatch):
+    """SGD adds the fp32 sum of a step's deltas to a narrow table once: at
+    most ``SMALL_TABLE_ROWS`` rows (the reference's one-hot product) and
+    larger, up to ``DENSE_MAX_ELEMS`` elements; past that bound delta by
+    delta. Two deltas under half an ulp of 1.0 tell the two apart. An id
+    past the table is dropped."""
     one, d = torch.ones(()), torch.tensor(4e-8)
     summed, each = one + (d + d), one + d + d
     assert summed != each
-    t = torch.ones(rows, 2)
-    optim.SparseSGD(Config(alpha=1.0)).apply(
-        {"t": t}, {}, {"t": [(torch.tensor([3, 3, rows]),
-                              torch.full((3, 2), -4e-8))]}, 0)
-    want = summed if rows <= optim.SMALL_TABLE_ROWS else each
-    assert torch.equal(t[3], want.expand(2))
-    t[3] = 1.0
-    assert torch.equal(t, torch.ones(rows, 2))
+    for bound, want in ((optim.DENSE_MAX_ELEMS, summed),
+                        (2 * rows - 1, each)):
+        monkeypatch.setattr(optim, "DENSE_MAX_ELEMS", bound)
+        t = torch.ones(rows, 2)
+        optim.SparseSGD(Config(alpha=1.0)).apply(
+            {"t": t}, {}, {"t": [(torch.tensor([3, 3, rows]),
+                                  torch.full((3, 2), -4e-8))]}, 0)
+        assert torch.equal(t[3], want.expand(2))
+        t[3] = 1.0
+        assert torch.equal(t, torch.ones(rows, 2))
 
 
 def test_grouped_transr_adam_matches_generic_route():

@@ -19,7 +19,6 @@ from openkeonspark_tpu_torch.ckpt import (CheckpointManager,
 from openkeonspark_tpu_torch.cli import train as train_cli
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models import get_model, strip_padding
-from openkeonspark_tpu_torch.runtime import NotPortedError
 from openkeonspark_tpu_torch.train.loop import train
 from openkeonspark_tpu_torch.train.step import init_state
 
@@ -280,21 +279,33 @@ def test_cli_train_transr_relation_negatives(planted_dir, tmp_path, capsys,
     ["--mesh_data", "2", "--mesh_model", "2", "--chips_per_host", "2"],
     ["--mesh_data", "4", "--mesh_model", "2", "--chips_per_host", "4"],
     ["--mesh_data", "2", "--mesh_model", "1", "--chips_per_host", "1"]])
-def test_cli_train_refuses_unported_options(planted_dir, tmp_path, extra):
-    """``--batch_number``, ``--trace_dir`` and the DistMult and ComplEx
-    models are ported (``tests/test_torch_warm_start.py``), and so are
-    ``--type_constrain`` and ``--eval_dtype`` (below and
-    ``tests/test_torch_type_constrained.py``), the host sampler and the
-    flat grid (``tests/test_torch_host_sampler.py``,
-    ``tests/test_torch_launch.py``); the hierarchical step's options (a
-    grid spanning hosts of ``--chips_per_host`` devices, hot rows, the
-    degree-table capacities) are not (ROADMAP.md A12b), and are refused
-    before any process group forms or file is written."""
+def test_cli_train_trains_the_hier_options(planted_dir, tmp_path, extra):
+    """Hot rows and the degree-table capacities train on one device
+    (``cli.train``); a grid spanning hosts of ``--chips_per_host``
+    devices trains through the hierarchical step (``cli.launch --device
+    cpu``, gloo), whose ``mesh:`` line names it, the host count and, at
+    (2, 2), the one microbatch that an odd per-rank batch (37) leaves of
+    the configured two."""
+    from test_torch_launch import _ranks, _wait
     root, _ = planted_dir
-    with pytest.raises(NotPortedError, match="A12b"):
-        train_cli.main(_argv(root, tmp_path / "o", "--train_times", "1")
-                       + extra)
-    assert not (tmp_path / "o").exists()
+    out = tmp_path / "o"
+    argv = _argv(root, out, "--train_times", "1") + extra
+    if "--mesh_data" not in extra:
+        summary = train_cli.main(argv)
+        assert summary["steps"] == 10 and np.isfinite(summary["final_loss"])
+        assert latest_step(str(out)) == 10
+        return
+    d, m, per_host = (int(extra[i]) for i in (1, 3, 5))
+    (o0, *_), = _wait([_ranks("openkeonspark_tpu_torch.cli.launch", d * m,
+                              argv)])
+    assert f"mesh: data={d} model={m} ({d * m} devices, gloo, " \
+        f"{d * m // per_host} hosts) step=hier" in o0, o0[-2000:]
+    n = d * m
+    per_rank = (149 - 149 % n) // d // m    # 1,490 triples, 10 batches
+    assert ("microbatches=1 (of 2" in o0) == bool(per_rank % 2), o0[-2000:]
+    assert latest_step(str(out)) == 10
+    tables = import_parameters(str(out / "embedding.vec.json"))
+    assert all(np.isfinite(v).all() for v in tables.values())
 
 
 def test_cli_train_eval_dtype_bf16_matches_jax(planted_dir, tmp_path,

@@ -231,13 +231,13 @@ def test_trace_dir_writes_the_second_epochs_trace(tmp_path, capsys):
 
 
 def test_refusals_follow_the_ported_options():
-    """``batch_number``, ``trace_dir``, bfloat16 tables (``dtype``) and the
-    host sampler train; a table dtype the port does not take stays
-    refused, and so do the degree-table capacities (ROADMAP.md A12b)."""
+    """``batch_number``, ``trace_dir``, bfloat16 tables (``dtype``), the
+    host sampler and the degree-table capacities train; a table dtype the
+    port does not take stays refused."""
     check_train_supported(Config(model="distmult", batch_number=1,
                                  trace_dir="t"))
     check_train_supported(Config(model="complex", dtype="bfloat16"))
     check_train_supported(Config(model="complex", sampler="host"))
-    for kw in ({"dtype": "float16"}, {"exchange_capacity": "stats"}):
-        with pytest.raises(NotPortedError, match="ROADMAP"):
-            check_train_supported(Config(model="complex", **kw))
+    check_train_supported(Config(model="complex", exchange_capacity="stats"))
+    with pytest.raises(NotPortedError, match="ROADMAP"):
+        check_train_supported(Config(model="complex", dtype="float16"))

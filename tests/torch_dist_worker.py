@@ -12,12 +12,24 @@ alone, on the CPU here and on a card where there is one.
 Tasks (``kind``):
 
 - ``steps``: ``steps`` training steps of the psum or exchange step on a
-  (data, model) grid from the tables in ``params`` (an ``.npz`` of padded
-  tables); the batches of data row ``d`` either come from ``batches``
-  (``s{step}_d{d}_{field}`` arrays, the JAX package's draws) or are drawn
-  by the port's sampler from ``train.loop.group_generator``. Writes the
-  full stripped tables (``p_<table>``) and optimizer slots
-  (``s_<slot>_<table>``), the global losses and the fallback counts.
+  (data, model) grid, or of the hierarchical step (``hier``) on a (host,
+  data, model) grid, from the tables in ``params`` (an ``.npz`` of padded
+  tables, with zeroed ``#hot`` companions for hot rows, which the task
+  fills with ``sync_hot_cache``); the batches of data row ``d`` either
+  come from ``batches`` (``s{step}_d{d}_{field}`` arrays, the JAX
+  package's draws) or are drawn by the port's sampler from
+  ``train.loop.group_generator``. Writes the full stripped tables
+  (``p_<table>``) and optimizer slots (``s_<slot>_<table>``), the global
+  losses, the fallback counts, the microbatches the step ran, every
+  rank's companions after the sync (``sync_<key>``) and after the run
+  (``hot_<key>``, ranks stacked), the degree-table capacities
+  (``caps_<table>``), the ids the hierarchical step's buckets dropped
+  per stage over all ranks (``overflow``: gather 1, 2, update 1, 2)
+  and, with ``count_bytes`` (the ranks of a host),
+  every rank's cross-host ``all_to_all`` bytes and all its
+  ``all_to_all`` bytes to other ranks (``bytes``, [ranks, 2]).
+- ``wire_sum``: ``parallel.hier.wire_sum`` of a seeded buffer per rank at
+  the bf16 wire; writes rank 0's result.
 - ``host_train``: ``train.loop.train`` with the host sampler on a grid
   (the psum or exchange step) from the tables in ``params``: every rank
   samples the global batch and its data row steps on its slice. Writes
@@ -50,8 +62,12 @@ from openkeonspark_tpu_torch.data import (build_kg_index,  # noqa: E402
 from openkeonspark_tpu_torch.models import get_model  # noqa: E402
 from openkeonspark_tpu_torch.models.base import strip_padding  # noqa: E402
 from openkeonspark_tpu_torch.parallel import (  # noqa: E402
-    Sharding, build_exchange_train_step, build_sharded_train_step,
-    make_mesh, shard_state, unshard_state)
+    Sharding, build_exchange_train_step, build_hier_train_step,
+    build_sharded_train_step, build_train_step_for, degree_stats, make_mesh,
+    shard_state, sync_hot_cache, unshard_state)
+from openkeonspark_tpu_torch.parallel import exchange, hier  # noqa: E402
+from openkeonspark_tpu_torch.parallel.mesh import (  # noqa: E402
+    HOT_SUFFIX, all_gather, all_reduce, all_to_all)
 from openkeonspark_tpu_torch.sampling import (DeviceSampler,  # noqa: E402
                                               SampledBatch)
 from openkeonspark_tpu_torch.train.loop import group_generator  # noqa: E402
@@ -70,17 +86,72 @@ def _setup(task, device):
     return cfg, ds, model, params
 
 
+class CrossHostBytes:
+    """Counts, while on, the bytes each ``all_to_all`` of the exchange and
+    hierarchical steps sends to other ranks, and those bound for another
+    host (hosts of ``per_host`` consecutive ranks): over ``'host'`` every
+    block but this rank's, over ``'grid'`` the blocks of ranks on other
+    hosts, over ``'local'`` none."""
+
+    def __init__(self, per_host: int):
+        self.per_host, self.cross, self.total = per_host, 0, 0
+
+    def __call__(self, x, grid, axis="grid"):
+        n = grid.axis_size(axis)
+        blk = x.numel() * x.element_size() // n
+        if axis == "host":
+            self.cross += blk * (n - 1)
+        elif axis == "grid":
+            mine = grid.rank // self.per_host
+            self.cross += blk * sum(j // self.per_host != mine
+                                    for j in range(n))
+        self.total += blk * (n - 1)
+        return all_to_all(x, grid, axis)
+
+    def __enter__(self):
+        exchange.all_to_all = hier.all_to_all = self
+        return self
+
+    def __exit__(self, *exc):
+        exchange.all_to_all = hier.all_to_all = all_to_all
+
+
+def _companions(state, grid, prefix):
+    """Every rank's ``#hot`` companions and their slots, ranks stacked
+    ([ranks, K, d])."""
+    out = {}
+    trees = {"": state.params, **{f"{s}_": t
+                                  for s, t in state.opt_state.items()}}
+    for tag, tree in trees.items():
+        for k, v in tree.items():
+            if k.endswith(HOT_SUFFIX):
+                out[f"{prefix}{tag}{k[:-len(HOT_SUFFIX)]}"] = all_gather(
+                    v, grid, "grid").view(grid.size, *v.shape).cpu().numpy()
+    return out
+
+
+STEPS = {"psum": build_sharded_train_step,
+         "exchange": build_exchange_train_step,
+         "hier": build_hier_train_step}
+
+
 def run_steps(task, device):
     cfg, ds, model, params = _setup(task, device)
     grid = make_mesh(tuple(task["grid"]), device)
-    flat = task["step"] == "exchange"
-    build = build_exchange_train_step if flat else build_sharded_train_step
-    step_fn = build(model, cfg, grid, task["batch"], ds.n_train)
+    flat = task["step"] != "psum"
+    degrees = degree_stats(ds)
+    step_fn = STEPS[task["step"]](model, cfg, grid, task["batch"],
+                                  ds.n_train, None,
+                                  *([degrees] if flat else []))
+    sharding = Sharding(grid, flat)
     state = shard_state(TrainState(params, make_optimizer(cfg).init(params),
                                    0), grid, flat)
+    state = sync_hot_cache(state, model, degrees, sharding)
+    out = _companions(state, grid, "sync_")
     batches = np.load(task["batches"]) if task.get("batches") else None
     sampler = DeviceSampler.build(ds, build_kg_index(ds, for_eval=False),
                                   device)
+    counter = CrossHostBytes(task.get("count_bytes") or grid.size)
     losses = []
     for i in range(task["steps"]):
         if batches is not None:
@@ -93,14 +164,33 @@ def run_steps(task, device):
             gen = group_generator(cfg, state.step, device, grid.d_idx,
                                   grid.data)
             bits = sampler.draw_bits(step_fn.bits_shape, gen)
-            state, loss = step_fn(state, sampler, bits)
+            if task.get("count_bytes"):
+                with counter:
+                    state, loss = step_fn(state, sampler, bits)
+            else:
+                state, loss = step_fn(state, sampler, bits)
         losses.append(float(loss))
-    out = _stripped(unshard_state(state, Sharding(grid, flat)), model, cfg,
-                    ds)
+    out.update(_stripped(unshard_state(state, sharding), model, cfg, ds))
+    out.update(_companions(state, grid, "hot_"))
     out["loss"] = np.asarray(losses)
     stats = getattr(step_fn, "fallbacks", {})
     out["fallbacks"] = np.asarray([stats.get("gather", 0),
                                    stats.get("update", 0)])
+    out["microbatches"] = np.asarray(getattr(step_fn, "microbatches", 0))
+    if hasattr(step_fn, "overflow"):   # ids dropped per stage, all ranks
+        out["overflow"] = all_reduce(torch.stack(
+            [step_fn.overflow[k] for k in sorted(step_fn.overflow)]), grid,
+            "grid").cpu().numpy()
+    plan = getattr(step_fn, "plan", None)
+    caps = (plan.caps if plan is not None
+            else (getattr(step_fn, "stats_caps", None) or (0, {}))[1])
+    for t, c in caps.items():
+        out[f"caps_{t}"] = np.asarray([c[k] for k in sorted(c)])
+    if plan is not None:
+        out["lp"] = np.asarray(sorted(plan.lp_by_table.items())[0][1]
+                               if plan.lp_by_table else 0)
+    out["bytes"] = all_gather(torch.tensor([[counter.cross, counter.total]]),
+                              grid, "grid").numpy()
     return out
 
 
@@ -120,12 +210,11 @@ def run_host_train(task, device):
     cfg, ds, model, params = _setup(task, device)
     grid = make_mesh(tuple(task["grid"]), device)
     sharding = Sharding(grid, task["step"] == "exchange")
-    build = (build_exchange_train_step if sharding.flat
-             else build_sharded_train_step)
     state = shard_state(TrainState(params, make_optimizer(cfg).init(params),
                                    0), grid, sharding.flat)
     res = train(cfg, ds, device, state=state, echo=lambda _: None,
-                step_builder=lambda m, c, b, n: build(m, c, grid, b, n),
+                step_builder=lambda m, c, b, n: build_train_step_for(
+                    m, c, grid, b, n),
                 sharding=sharding)
     out = _stripped(unshard_state(res.state, sharding), model, cfg, ds)
     out["loss"] = np.asarray([e.loss for e in res.history])
@@ -221,9 +310,25 @@ def launch(tmp_path, worlds, device: str = "cpu", timeout: float = 240.0):
     return res
 
 
+def wire_sum_input(rank: int) -> torch.Tensor:
+    """Rank ``rank``'s buffer of the ``wire_sum`` task: magnitudes in
+    [0.5, 2), so an fp32 sum of four bf16 values is exact."""
+    g = torch.Generator().manual_seed(100 + rank)
+    sign = torch.randint(0, 2, (64, 9), generator=g) * 2 - 1
+    return sign * (0.5 + 1.5 * torch.rand(64, 9, generator=g))
+
+
+def run_wire_sum(task, device):
+    grid = make_mesh(tuple(task["grid"]), device)
+    got = hier.wire_sum(wire_sum_input(grid.rank).to(device), grid,
+                        torch.bfloat16)
+    return {"got": got.cpu().numpy()}
+
+
 TASKS = {"steps": run_steps, "host_train": run_host_train,
          "link_prediction": run_link_prediction,
-         "classification": run_classification, "a2a": run_a2a}
+         "classification": run_classification, "a2a": run_a2a,
+         "wire_sum": run_wire_sum}
 
 
 def main():
