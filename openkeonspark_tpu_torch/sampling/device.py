@@ -167,6 +167,15 @@ class DeviceSampler:
             ent_iters=_ceil_log2(max_ent_cnt + 1),
             rel_iters=_ceil_log2(max_rel_cnt + 1))
 
+    def store_bytes(self) -> int:
+        """Device bytes of the sampler's tensors (triple records, the
+        complement adjacencies, the Bernoulli table): the counterpart of
+        the JAX package's ``store_bytes`` (``sampling/device.py:179-189``),
+        measured on this store's own layout (int64 records and windows)."""
+        return sum(t.numel() * t.element_size() for t in
+                   (self.trip, self.ent_adj, self.rel_adj,
+                    self.p_corrupt_head))
+
     @staticmethod
     def bits_cols(negative_ent: int, negative_rel: int) -> int:
         """u32 columns one step's draws consume (see :meth:`sample`)."""

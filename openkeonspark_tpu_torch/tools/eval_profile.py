@@ -7,26 +7,23 @@ host clock), then one run at the default chunk under ``torch.profiler``
 with the device time by kernel, the device busy share and a chrome trace
 in ``--out``.
 
-    python tools/torch_eval_profile.py --chunks 256,1024,4096
+    python -m openkeonspark_tpu_torch.tools.eval_profile \\
+        --chunks 256,1024,4096
 """
 
 import argparse
 import os
 import subprocess
-import sys
 import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from openkeonspark_tpu_torch.config import Config  # noqa: E402
-from openkeonspark_tpu_torch.data import build_kg_index, fb15k237_like  # noqa: E402
-from openkeonspark_tpu_torch.eval import link_prediction  # noqa: E402
-from openkeonspark_tpu_torch.models import TransE, init_tables  # noqa: E402
-from openkeonspark_tpu_torch.runtime import eval_chunk_size  # noqa: E402
+from openkeonspark_tpu_torch.config import Config
+from openkeonspark_tpu_torch.data import build_kg_index, fb15k237_like
+from openkeonspark_tpu_torch.eval import link_prediction
+from openkeonspark_tpu_torch.models import TransE, init_tables
+from openkeonspark_tpu_torch.runtime import eval_chunk_size
 
 DIM = 200
 REPEATS = 5
@@ -50,6 +47,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

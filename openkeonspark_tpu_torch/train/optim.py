@@ -113,6 +113,17 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
                      torch.where(valid, delta, 0.0))
 
 
+def add_rows_summed(table: torch.Tensor, ids: torch.Tensor,
+                    delta: torch.Tensor) -> None:
+    """In place ``table[ids] += delta`` as SGD adds to a narrow table: the
+    deltas summed per row in a dense fp32 table first, each row's sum then
+    added once (ids ≥ rows dropped)."""
+    total = torch.zeros(table.shape, dtype=torch.float32,
+                        device=table.device)
+    scatter_add_rows(total, ids, delta)
+    table.add_(total.to(table.dtype))
+
+
 def _merged(pairs) -> Tuple[torch.Tensor, torch.Tensor]:
     """One id stream and one gradient stream per table."""
     if len(pairs) == 1:
@@ -160,12 +171,7 @@ class SparseSGD:
             ids, g = _merged(pairs)
             delta = (-self.lr * g).to(t.dtype)
             if t.numel() <= DENSE_MAX_ELEMS and not use_wide_kernel(t):
-                # the table-dtype deltas summed per row in fp32, each row's
-                # sum added once
-                total = torch.zeros(t.shape, dtype=torch.float32,
-                                    device=t.device)
-                scatter_add_rows(total, ids, delta)
-                t.add_(total.to(t.dtype))
+                add_rows_summed(t, ids, delta)
                 continue
             scatter_add_rows(t, ids, delta, plain)
         return params, state

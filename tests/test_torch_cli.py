@@ -237,7 +237,10 @@ def test_port_imports_no_jax():
         "        'openkeonspark_tpu_torch.parallel.sharded',\n"
         "        'openkeonspark_tpu_torch.parallel.exchange',\n"
         "        'openkeonspark_tpu_torch.parallel.eval',\n"
-        "        'openkeonspark_tpu_torch.cli.launch'} <= set(names)\n"
+        "        'openkeonspark_tpu_torch.cli.launch',\n"
+        "        'openkeonspark_tpu_torch.tools.bench_all',\n"
+        "        'openkeonspark_tpu_torch.tools.acceptance',\n"
+        "        'openkeonspark_tpu_torch.tools.eval_profile'} <= set(names)\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

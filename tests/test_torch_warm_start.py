@@ -19,9 +19,11 @@ from openkeonspark_tpu_torch.ckpt import (CheckpointManager,
                                           warm_start_from, warm_start_path)
 from openkeonspark_tpu_torch.cli import train as train_cli
 from openkeonspark_tpu_torch.config import Config
-from openkeonspark_tpu_torch.data import Dataset, random_kg, save_dataset
+from openkeonspark_tpu_torch.data import random_kg, save_dataset
 from openkeonspark_tpu_torch.models import get_model
 from openkeonspark_tpu_torch.runtime import NotPortedError
+from openkeonspark_tpu_torch.tools.split_incremental import \
+    split_incremental
 from openkeonspark_tpu_torch.train.loop import TRACE_NAME, train
 from openkeonspark_tpu_torch.train.step import (check_train_supported,
                                                 init_state)
@@ -37,24 +39,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
-
-
-def _split(ds, n_batches, seed):
-    """Cumulative batch folders' datasets, as ``tools/split_incremental.py``
-    cuts them: each split permuted once and cut into ``n_batches``
-    increments, batch i holding increments 0..i."""
-    rng = np.random.default_rng(seed)
-
-    def increments(arr):
-        perm = rng.permutation(len(arr))
-        return [arr[np.sort(c)] for c in np.array_split(perm, n_batches)]
-
-    tr, va, te = (increments(a) for a in (ds.train, ds.valid, ds.test))
-    return [Dataset(n_ent=ds.n_ent, n_rel=ds.n_rel,
-                    train=np.concatenate(tr[:i + 1]),
-                    valid=np.concatenate(va[:i + 1]),
-                    test=np.concatenate(te[:i + 1]))
-            for i in range(n_batches)]
 
 
 def _argv(root, out, *extra):
@@ -185,7 +169,7 @@ def test_resumed_batch_matches_uninterrupted(tmp_path):
     ``test_cli_auto_resume_matches_uninterrupted``)."""
     ds = random_kg(n_ent=80, n_rel=5, n_triples=900, n_valid=40, n_test=40,
                    seed=8)
-    for i, snap in enumerate(_split(ds, 2, 3)):
+    for i, snap in split_incremental(ds, 2, 3):
         save_dataset(snap, str(tmp_path / "kg" / str(i)))
     kg = tmp_path / "kg"
     for out in ("full", "re"):
