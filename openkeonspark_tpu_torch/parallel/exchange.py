@@ -34,9 +34,12 @@ Tables and optimizer slots are row-sharded over all ``N = D·M`` ranks
   ``:449`` and ``:545`` in the JAX package).
 - **Wire dtype** (``cfg.exchange_wire_dtype``): rows and gradients are
   cast to it before an ``all_to_all`` and back after it, where the JAX
-  step casts; every payload travels as raw bytes (``mesh.all_to_all``).
-  The fallbacks and the dense gradient stay in the tables' and the
-  gradients' dtypes, as the JAX step's do.
+  step casts; every payload travels as raw bytes (``mesh.all_to_all``),
+  row ids and overflow counts as int32, the JAX step's dtype. The
+  fallbacks and the dense gradient stay in the tables' and the
+  gradients' dtypes, as the JAX step's do. The fallbacks' collectives
+  run under ``mesh.fallback()``, so a ``parallel.comm`` counter keeps
+  their bytes apart, as the JAX count skips ``lax.cond`` branches.
 
 - **Capacities** (``cfg.exchange_capacity``): ``'uniform'`` sizes every
   bucket by the birthday estimate; ``'stats'`` sizes the entity tables'
@@ -59,8 +62,9 @@ import torch
 
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import KGEModel
-from openkeonspark_tpu_torch.parallel.mesh import (Grid, all_gather,
-                                                   all_reduce, all_to_all)
+from openkeonspark_tpu_torch.parallel.mesh import (
+    Grid, all_gather, all_gather_ids, all_reduce, all_to_all, all_to_all_ids,
+    fallback)
 from openkeonspark_tpu_torch.parallel.sharded import (
     build_sharded_train_step, data_partition, owned_or_sentinel)
 from openkeonspark_tpu_torch.sampling.device import (DeviceSampler,
@@ -143,7 +147,7 @@ def _route_gather(grid: Grid, local: torch.Tensor, ids: torch.Tensor,
     n = grid.size
     req = torch.full((n * cap + 1,), -1, dtype=ids.dtype, device=ids.device)
     req[slot] = ids
-    req_r = all_to_all(req[:n * cap], grid, GRID)
+    req_r = all_to_all_ids(req[:n * cap], grid, GRID)
     lid = req_r - grid.rank * lp
     ok = (lid >= 0) & (lid < lp) & (req_r >= 0)
     rows = torch.where(ok[:, None], local[lid.clamp(0, lp - 1)],
@@ -164,13 +168,15 @@ def _gather_fallback(grid: Grid, local: torch.Tensor, ids: torch.Tensor,
     requester's block, then a sum over senders), ``:190-204``."""
     lp, d = local.shape
     n, u = grid.size, ids.shape[0]
-    all_ids = all_gather(torch.where(valid & ~routed, ids, -1), grid, GRID)
-    lid = all_ids - grid.rank * lp
-    ok = (lid >= 0) & (lid < lp) & (all_ids >= 0)
-    rows = torch.where(ok[:, None], local[lid.clamp(0, lp - 1)],
-                       torch.zeros((), dtype=local.dtype,
-                                   device=local.device))
-    return all_to_all(rows, grid, GRID).view(n, u, d).sum(0)
+    with fallback():
+        all_ids = all_gather_ids(torch.where(valid & ~routed, ids, -1),
+                                 grid, GRID)
+        lid = all_ids - grid.rank * lp
+        ok = (lid >= 0) & (lid < lp) & (all_ids >= 0)
+        rows = torch.where(ok[:, None], local[lid.clamp(0, lp - 1)],
+                           torch.zeros((), dtype=local.dtype,
+                                       device=local.device))
+        return all_to_all(rows, grid, GRID).view(n, u, d).sum(0)
 
 
 def _route_update(grid: Grid, lp: int, ids: torch.Tensor,
@@ -189,7 +195,7 @@ def _route_update(grid: Grid, lp: int, ids: torch.Tensor,
     buf_ids = torch.cat([ids, ids.new_full((1,), sent)])[src]
     buf_ids = torch.where(buf_ids >= sent, sent, buf_ids)
     buf_g = torch.cat([grads, grads.new_zeros((1, d))])[src].to(wire_dt)
-    rid = all_to_all(buf_ids, grid, GRID)
+    rid = all_to_all_ids(buf_ids, grid, GRID)
     rg = all_to_all(buf_g, grid, GRID).to(grads.dtype)
     lid, _ = owned_or_sentinel(rid, grid.rank * lp, lp)
     ovf_ids = torch.where(routed | ~valid, sent, ids)
@@ -261,8 +267,9 @@ def plan_sharded_step(cfg: Config, batch_size: int, grid: Grid) -> str:
 
 
 def _max_over_grid(grid: Grid, count: torch.Tensor) -> int:
-    """One decision for every rank: the largest count on the grid."""
-    return int(all_reduce(count.reshape(1), grid, GRID,
+    """One decision for every rank: the largest count on the grid (an
+    int32 reduction, the JAX step's ``psum`` of an int32 count)."""
+    return int(all_reduce(count.reshape(1).int(), grid, GRID,
                           op=torch.distributed.ReduceOp.MAX))
 
 
@@ -455,8 +462,9 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
             for table, pairs in ovf_pairs.items():
                 lp = P[table].shape[0]
                 for oid, og in pairs:
-                    gid = all_gather(oid, grid, GRID)
-                    gg = all_gather(og, grid, GRID)
+                    with fallback():
+                        gid = all_gather_ids(oid, grid, GRID)
+                        gg = all_gather(og, grid, GRID)
                     lid, owned = owned_or_sentinel(gid, grid.rank * lp, lp)
                     updates[table].append(
                         (lid, torch.where(owned[:, None], gg, 0.0)))

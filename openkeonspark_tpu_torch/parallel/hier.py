@@ -66,9 +66,9 @@ from openkeonspark_tpu_torch.parallel.exchange import (
     microbatches)
 from openkeonspark_tpu_torch.parallel.hot import (HOT_SUFFIX, HotPlan,
                                                   entity_table_names)
-from openkeonspark_tpu_torch.parallel.mesh import (HOST, LOCAL, Grid,
-                                                   all_gather, all_reduce,
-                                                   all_to_all)
+from openkeonspark_tpu_torch.parallel.mesh import (
+    HOST, LOCAL, Grid, all_gather, all_gather_ids, all_reduce, all_to_all,
+    all_to_all_ids, fallback)
 from openkeonspark_tpu_torch.parallel.sharded import (data_partition,
                                                       owned_or_sentinel)
 from openkeonspark_tpu_torch.sampling.device import (DeviceSampler,
@@ -224,8 +224,8 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
                                     else None)
             routed1, slot1, novf1 = _bucket(work, L, cap1, lp, valid,
                                             owner=(work // lp) % L)
-            recv1 = all_to_all(_scatter_ids(work, slot1, L * cap1, -1),
-                               grid, LOCAL)
+            recv1 = all_to_all_ids(_scatter_ids(work, slot1, L * cap1,
+                                                -1), grid, LOCAL)
 
             # stage 2 at the relay: the host's union deduplicated, ids to
             # their owner hosts
@@ -243,8 +243,8 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
                     local_rows=lp)
             routed2, slot2, novf2 = _bucket(runiq, H, cap2, lp, rvalid,
                                             owner=runiq // (L * lp))
-            recv2 = all_to_all(_scatter_ids(runiq, slot2, H * cap2, -1),
-                               grid, HOST)
+            recv2 = all_to_all_ids(_scatter_ids(runiq, slot2, H * cap2,
+                                                -1), grid, HOST)
 
             # serve: the receiver is the owner (the relay's local position
             # is the owner's), so one local take
@@ -361,7 +361,7 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
                 routed1, slot1, novf1 = _bucket(uid, L, cap1, lp, valid,
                                                 owner=(uid // lp) % L)
                 b_ids, b_g = _scatter_pairs(uid, ug, slot1, L * cap1, sent)
-                rid = all_to_all(b_ids, grid, LOCAL)
+                rid = all_to_all_ids(b_ids, grid, LOCAL)
                 rg = all_to_all(b_g.to(ici_dt), grid, LOCAL).to(ug.dtype)
 
                 # the relay sums the host's duplicates, then one hop across
@@ -380,7 +380,7 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
                                                 owner=auid // (L * lp))
                 b2_ids, b2_g = _scatter_pairs(auid, aagg, slot2, H * cap2,
                                               sent)
-                rid2 = all_to_all(b2_ids, grid, HOST)
+                rid2 = all_to_all_ids(b2_ids, grid, HOST)
                 rg2 = all_to_all(b2_g.to(wire_dt), grid, HOST).to(ug.dtype)
                 lid, _ = owned_or_sentinel(rid2, n_idx * lp, lp)
                 main_pairs.setdefault(table, []).append((lid, rg2))
@@ -416,8 +416,9 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
             for table, pairs in ovf_pairs.items():
                 lp = P[table].shape[0]
                 for oid, og in pairs:
-                    gid = all_gather(oid, grid, GRID)
-                    gg = all_gather(og, grid, GRID)
+                    with fallback():
+                        gid = all_gather_ids(oid, grid, GRID)
+                        gg = all_gather(og, grid, GRID)
                     lid, owned = owned_or_sentinel(gid, n_idx * lp, lp)
                     updates[table].append(
                         (lid, torch.where(owned[:, None], gg, 0.0)))

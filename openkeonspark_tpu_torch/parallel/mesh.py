@@ -24,7 +24,9 @@ of one host (the JAX axes ``('data', 'model')`` of ``hier.py:84``), and
 ``'host'``, the H ranks at one local position (the JAX axis
 ``'host'``). On one machine the "hosts" are groups of ranks; the backend
 picks the links (NVLink inside a node, the network between nodes), so
-nothing here prices them.
+nothing here prices them. Every collective of the port runs through the
+three below, which hand their bytes to an active :data:`recorder`
+(``parallel/comm.py`` counts and prices them).
 
 The backend is the caller's: ``nccl`` for a card per rank, ``gloo`` for
 the CPU (and for ranks that share one card, which NCCL refuses).
@@ -49,6 +51,7 @@ rank builds the same sampler on its device (``shard_sampler``,
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -123,6 +126,24 @@ class Grid:
         (every rank)."""
         return self.groups.get(axis)
 
+    def members(self, axis: str) -> Tuple[Tuple[int, ...], ...]:
+        """Every group of ``axis`` as its ranks, the groups in the order
+        ``make_mesh`` creates them (a collective's ``replica_groups``)."""
+        d, m, n_loc = self.data, self.model, self.local
+        if axis == MODEL:
+            return tuple(tuple(r * m + c for c in range(m))
+                         for r in range(d))
+        if axis == DATA:
+            return tuple(tuple(r * m + c for r in range(d))
+                         for c in range(m))
+        if axis == LOCAL:
+            return tuple(tuple(h * n_loc + i for i in range(n_loc))
+                         for h in range(self.hosts or 1))
+        if axis == HOST:
+            return tuple(tuple(h * n_loc + i for h in range(self.hosts or 1))
+                         for i in range(n_loc))
+        return (tuple(range(self.size)),)
+
 
 def make_mesh(shape: Tuple[int, ...], device: torch.device) -> Grid:
     """The grid of ``shape = (data, model)``, or ``(host, data, model)``,
@@ -149,20 +170,13 @@ def make_mesh(shape: Tuple[int, ...], device: torch.device) -> Grid:
     d, m = (shape[0] * shape[1], shape[2]) if hier else shape
     grid = Grid(d, m, dist.get_rank(), device, dist.get_backend(),
                 hosts=hosts)
-    n_loc = grid.local
     # every rank creates every group, in one order (new_group's contract)
-    axes = [(MODEL, [[r * m + c for c in range(m)] for r in range(d)]),
-            (DATA, [[r * m + c for r in range(d)] for c in range(m)])]
-    if hier:
-        axes += [(LOCAL, [[h * n_loc + i for i in range(n_loc)]
-                          for h in range(hosts)]),
-                 (HOST, [[h * n_loc + i for h in range(hosts)]
-                         for i in range(n_loc)])]
-    for axis, members in axes:
+    for axis in (MODEL, DATA, LOCAL, HOST) if hier else (MODEL, DATA):
+        members = grid.members(axis)
         if len(members[0]) == 1:
             continue
         for ranks in members:
-            g = dist.new_group(ranks)
+            g = dist.new_group(list(ranks))
             if grid.rank in ranks:
                 grid.groups[axis] = g
     if world > 1:
@@ -172,12 +186,39 @@ def make_mesh(shape: Tuple[int, ...], device: torch.device) -> Grid:
 
 # ---- collectives ---------------------------------------------------------
 
+# The active recorder (``parallel/comm.py::CollectiveCounter``) or None.
+# Each collective over more than one rank hands it (kind, payload bytes,
+# grid, axis), the payload being the op's output, as the JAX package's HLO
+# count has it (``comm.py:126-141``); with none active a collective pays
+# one test of this name.
+recorder = None
+
+
+@contextlib.contextmanager
+def fallback():
+    """Marks the collectives inside as an exact overflow fallback's, which
+    a recorder keeps apart from the steady state (the JAX count skips
+    ``lax.cond`` branches, ``comm.py:87-91``)."""
+    rec = recorder
+    if rec is None:
+        yield
+        return
+    rec.in_fallback += 1
+    try:
+        yield
+    finally:
+        rec.in_fallback -= 1
+
+
 def all_reduce(x: torch.Tensor, grid: Grid, axis: str,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduce ``x`` over ``axis`` in its dtype (``psum``); returns a new
     tensor, ``x`` itself when the axis has one rank."""
     if grid.axis_size(axis) == 1:
         return x
+    if recorder is not None:
+        recorder.record("all-reduce", x.numel() * x.element_size(), grid,
+                        axis)
     out = x.detach().clone().contiguous()
     dist.all_reduce(out, op=op, group=grid.group(axis))
     return out
@@ -190,6 +231,9 @@ def all_gather(x: torch.Tensor, grid: Grid, axis: str) -> torch.Tensor:
     n = grid.axis_size(axis)
     if n == 1:
         return x
+    if recorder is not None:
+        recorder.record("all-gather", n * x.numel() * x.element_size(),
+                        grid, axis)
     x = x.detach().contiguous()
     raw = x.view(-1).view(torch.uint8)
     if grid.backend == "gloo":
@@ -211,11 +255,27 @@ def all_to_all(x: torch.Tensor, grid: Grid, axis: str = "grid"
     concat_axis=0)``). The payload travels as raw bytes."""
     if grid.axis_size(axis) == 1:
         return x
+    if recorder is not None:
+        recorder.record("all-to-all", x.numel() * x.element_size(), grid,
+                        axis)
     x = x.detach().contiguous()
     raw = x.view(-1).view(torch.uint8)
     out = torch.empty_like(raw)
     dist.all_to_all_single(out, raw, group=grid.group(axis))
     return out.view(x.dtype).view(x.shape)
+
+
+def all_gather_ids(ids: torch.Tensor, grid: Grid, axis: str
+                   ) -> torch.Tensor:
+    """:func:`all_gather` of row ids, int32 on the wire (the JAX steps' id
+    dtype, half the bytes of int64), int64 back."""
+    return all_gather(ids.int(), grid, axis).long()
+
+
+def all_to_all_ids(ids: torch.Tensor, grid: Grid, axis: str = "grid"
+                   ) -> torch.Tensor:
+    """:func:`all_to_all` of row ids, int32 on the wire, int64 back."""
+    return all_to_all(ids.int(), grid, axis).long()
 
 
 # ---- layouts -------------------------------------------------------------

@@ -35,7 +35,8 @@ import torch
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import KGEModel
 from openkeonspark_tpu_torch.parallel.mesh import (DATA, MODEL, Grid,
-                                                   all_gather, all_reduce)
+                                                   all_gather, all_gather_ids,
+                                                   all_reduce)
 from openkeonspark_tpu_torch.sampling.device import (DeviceSampler,
                                                      SampledBatch)
 from openkeonspark_tpu_torch.train.optim import Updates, make_optimizer
@@ -107,7 +108,7 @@ def build_sharded_train_step(model: KGEModel, cfg: Config, grid: Grid,
                                                g_slots).items():
             lp = state.params[table].shape[0]
             for uid, ug in pairs:
-                gid = all_gather(uid, grid, DATA)
+                gid = all_gather_ids(uid, grid, DATA)
                 gg = all_gather(ug, grid, DATA)
                 lid, owned = owned_or_sentinel(gid, m_idx * lp, lp)
                 updates.setdefault(table, []).append(

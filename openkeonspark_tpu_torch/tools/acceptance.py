@@ -35,7 +35,6 @@ import argparse
 import json
 import os
 import socket
-import subprocess
 import sys
 import tempfile
 import time
@@ -49,6 +48,7 @@ from openkeonspark_tpu_torch.data import (build_kg_index, load_dataset,
                                           save_dataset)
 from openkeonspark_tpu_torch.eval import link_prediction
 from openkeonspark_tpu_torch.tools import add_device_flag, open_device
+from openkeonspark_tpu_torch.tools.ranks import run_processes
 from openkeonspark_tpu_torch.train.loop import train
 
 CONFIGS = [
@@ -134,41 +134,11 @@ def train_ranks(cfg: Config, path: str, n_ranks: int, dev: torch.device,
                  "--device", dev.type, "--coordinator",
                  f"localhost:{_free_port()}",
                  "--num_processes", str(n_ranks)]
-        # the ranks import this package from wherever it lies
-        root = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep
-                   .join(filter(None, (root, os.environ.get("PYTHONPATH")))))
-        outs = [os.path.join(work, f"rank{p}.out") for p in range(n_ranks)]
-        procs = []
-        try:
-            for p, out in enumerate(outs):
-                with open(out, "w") as f:
-                    procs.append(subprocess.Popen(
-                        [sys.executable, "-m",
-                         "openkeonspark_tpu_torch.cli.launch", *flags,
-                         "--process_id", str(p)], env=env, stdout=f,
-                        stderr=subprocess.STDOUT))
-            deadline = time.monotonic() + RANKS_TIMEOUT
-            while any(p.poll() is None for p in procs):
-                if time.monotonic() > deadline or any(
-                        p.poll() not in (None, 0) for p in procs):
-                    break
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-        texts = []
-        for out in outs:
-            with open(out) as f:
-                texts.append(f.read())
-        bad = [i for i, p in enumerate(procs) if p.returncode != 0]
-        if bad:
-            raise RuntimeError(f"cli.launch rank {bad[0]} exited "
-                               f"{procs[bad[0]].returncode}:\n"
-                               f"{texts[bad[0]][-3000:]}")
+        texts = run_processes(
+            [[sys.executable, "-m", "openkeonspark_tpu_torch.cli.launch",
+              *flags, "--process_id", str(p)] for p in range(n_ranks)],
+            work, RANKS_TIMEOUT,
+            names=[f"cli.launch rank {p}" for p in range(n_ranks)])
         for line in texts[0].splitlines():
             if "process(es)" in line:
                 echo(line)

@@ -8,9 +8,9 @@ package's hierarchical step (the counterparts of ``tests/test_hier.py``):
   the small-table path, dedup ``off`` and ``both``, through both exact
   fallbacks at slack 0.01, and whatever the microbatches;
 - it equals the JAX hierarchical step on the JAX draws and tables;
-- its cross-host ``all_to_all`` bytes are at least 2.5× below the flat
-  step's on ``(2, 2, 2)`` at batch 2048, counted by
-  ``torch_dist_worker.CrossHostBytes``;
+- its cross-host wire bytes are at least 2.5× below the flat step's on
+  ``(2, 2, 2)`` at batch 2048, counted by
+  ``parallel.comm.CollectiveCounter``;
 - the bf16 ICI wire stays within ``tests/test_hier.py:179-196``'s bound;
 - a dense gradient is rounded to the wire dtype once per rank and summed
   in fp32 (the JAX step sums in the wire dtype, ``hier.py:459``);
@@ -199,13 +199,20 @@ def test_hier_matches_jax(runs):
 
 def test_cross_host_bytes_drop(runs):
     """Rows cross hosts once per host, not once per rank: on (2, 2, 2) at
-    batch 2048 the hierarchical step's cross-host all_to_all bytes are at
-    least 2.5× below the flat (4, 2) step's, while its relay hops (inside a
-    host) carry bytes too."""
-    flat = runs["bytes/flat"]["bytes"].sum(0)
-    hier = runs["bytes/hier"]["bytes"].sum(0)
-    assert hier[0] > 0 and hier[1] > hier[0], hier
-    assert hier[0] * 2.5 <= flat[0], (flat, hier)
+    batch 2048 the hierarchical step's cross-host wire bytes
+    (``parallel.comm.CollectiveCounter``'s ``wire_dcn``, hosts of 4 ranks)
+    are at least 2.5× below the flat (4, 2) step's, while it does cross
+    hosts and its relay hops ride the links inside a host
+    (``tests/test_hier.py:146-176``); the ``all_to_all``s alone cross
+    hosts 2.5× less and send bytes inside a host as well."""
+    flat, hier = runs["bytes/flat"], runs["bytes/hier"]
+    assert hier["comm_wire_dcn"] * 2.5 <= flat["comm_wire_dcn"], (
+        flat["comm_wire_dcn"], hier["comm_wire_dcn"])
+    assert hier["comm_wire_dcn"] > 0
+    assert hier["comm_wire_ici"] > 0
+    assert hier["comm_a2a_wire_dcn"] > 0, hier
+    assert hier["comm_a2a_wire_dcn"] * 2.5 <= flat["comm_a2a_wire_dcn"]
+    assert hier["comm_a2a_wire_ici"] > 0, hier
 
 
 def test_ici_bf16_stage1_close_to_f32(runs):

@@ -25,9 +25,12 @@ Tasks (``kind``):
   (``hot_<key>``, ranks stacked), the degree-table capacities
   (``caps_<table>``), the ids the hierarchical step's buckets dropped
   per stage over all ranks (``overflow``: gather 1, 2, update 1, 2)
-  and, with ``count_bytes`` (the ranks of a host),
-  every rank's cross-host ``all_to_all`` bytes and all its
-  ``all_to_all`` bytes to other ranks (``bytes``, [ranks, 2]).
+  and, with ``count_bytes`` (the ranks of a host), the steps' collective
+  bytes as ``parallel.comm.CollectiveCounter`` counts them, summed over
+  the steps (``comm_<key>`` for each byte key of its dict,
+  ``comm_fallback`` the fallbacks' total, ``comm_count`` the collectives
+  issued, ``comm_a2a_wire_ici`` and ``comm_a2a_wire_dcn`` the wire split
+  of the ``all_to_all``s alone; ``comm_chips_per_host`` once).
 - ``wire_sum``: ``parallel.hier.wire_sum`` of a seeded buffer per rank at
   the bf16 wire; writes rank 0's result.
 - ``host_train``: ``train.loop.train`` with the host sampler on a grid
@@ -46,6 +49,7 @@ Tasks (``kind``):
 import json
 import os
 import sys
+from contextlib import nullcontext
 from datetime import timedelta
 
 import numpy as np
@@ -65,9 +69,11 @@ from openkeonspark_tpu_torch.parallel import (  # noqa: E402
     Sharding, build_exchange_train_step, build_hier_train_step,
     build_sharded_train_step, build_train_step_for, degree_stats, make_mesh,
     shard_state, sync_hot_cache, unshard_state)
-from openkeonspark_tpu_torch.parallel import exchange, hier  # noqa: E402
+from openkeonspark_tpu_torch.parallel import hier  # noqa: E402
+from openkeonspark_tpu_torch.parallel.comm import (  # noqa: E402
+    CollectiveCounter, bytes_of)
 from openkeonspark_tpu_torch.parallel.mesh import (  # noqa: E402
-    HOT_SUFFIX, all_gather, all_reduce, all_to_all)
+    HOT_SUFFIX, all_gather, all_reduce)
 from openkeonspark_tpu_torch.sampling import (DeviceSampler,  # noqa: E402
                                               SampledBatch)
 from openkeonspark_tpu_torch.train.loop import group_generator  # noqa: E402
@@ -84,36 +90,6 @@ def _setup(task, device):
     with np.load(task["params"]) as z:
         params = {k: torch.from_numpy(z[k]).to(device) for k in z.files}
     return cfg, ds, model, params
-
-
-class CrossHostBytes:
-    """Counts, while on, the bytes each ``all_to_all`` of the exchange and
-    hierarchical steps sends to other ranks, and those bound for another
-    host (hosts of ``per_host`` consecutive ranks): over ``'host'`` every
-    block but this rank's, over ``'grid'`` the blocks of ranks on other
-    hosts, over ``'local'`` none."""
-
-    def __init__(self, per_host: int):
-        self.per_host, self.cross, self.total = per_host, 0, 0
-
-    def __call__(self, x, grid, axis="grid"):
-        n = grid.axis_size(axis)
-        blk = x.numel() * x.element_size() // n
-        if axis == "host":
-            self.cross += blk * (n - 1)
-        elif axis == "grid":
-            mine = grid.rank // self.per_host
-            self.cross += blk * sum(j // self.per_host != mine
-                                    for j in range(n))
-        self.total += blk * (n - 1)
-        return all_to_all(x, grid, axis)
-
-    def __enter__(self):
-        exchange.all_to_all = hier.all_to_all = self
-        return self
-
-    def __exit__(self, *exc):
-        exchange.all_to_all = hier.all_to_all = all_to_all
 
 
 def _companions(state, grid, prefix):
@@ -151,24 +127,32 @@ def run_steps(task, device):
     batches = np.load(task["batches"]) if task.get("batches") else None
     sampler = DeviceSampler.build(ds, build_kg_index(ds, for_eval=False),
                                   device)
-    counter = CrossHostBytes(task.get("count_bytes") or grid.size)
+    counted = {}
     losses = []
     for i in range(task["steps"]):
-        if batches is not None:
-            key = f"s{i}_d{grid.d_idx}_"
-            batch = SampledBatch(**{
-                f: (torch.from_numpy(batches[key + f]).long().to(device)
-                    if key + f in batches.files else None) for f in FIELDS})
-            state, loss = step_fn.batch_step(state, batch)
-        else:
-            gen = group_generator(cfg, state.step, device, grid.d_idx,
-                                  grid.data)
-            bits = sampler.draw_bits(step_fn.bits_shape, gen)
-            if task.get("count_bytes"):
-                with counter:
-                    state, loss = step_fn(state, sampler, bits)
+        counter = CollectiveCounter(task.get("count_bytes") or 0)
+        with counter if task.get("count_bytes") else nullcontext():
+            if batches is not None:
+                key = f"s{i}_d{grid.d_idx}_"
+                batch = SampledBatch(**{
+                    f: (torch.from_numpy(batches[key + f]).long().to(device)
+                        if key + f in batches.files else None)
+                    for f in FIELDS})
+                state, loss = step_fn.batch_step(state, batch)
             else:
+                gen = group_generator(cfg, state.step, device, grid.d_idx,
+                                      grid.data)
+                bits = sampler.draw_bits(step_fn.bits_shape, gen)
                 state, loss = step_fn(state, sampler, bits)
+        if counter.bytes is not None:
+            a2a = bytes_of([e for e in counter.events
+                            if e[0] == "all-to-all"], counter.chips_per_host)
+            got = dict(counter.bytes, fallback=counter.bytes["fallback"][
+                "total"], count=counter.count, a2a_wire_ici=a2a["wire_ici"],
+                a2a_wire_dcn=a2a["wire_dcn"])
+            got.pop("chips_per_host")
+            counted = {k: counted.get(k, 0) + v for k, v in got.items()}
+            counted["chips_per_host"] = counter.chips_per_host
         losses.append(float(loss))
     out.update(_stripped(unshard_state(state, sharding), model, cfg, ds))
     out.update(_companions(state, grid, "hot_"))
@@ -189,8 +173,7 @@ def run_steps(task, device):
     if plan is not None:
         out["lp"] = np.asarray(sorted(plan.lp_by_table.items())[0][1]
                                if plan.lp_by_table else 0)
-    out["bytes"] = all_gather(torch.tensor([[counter.cross, counter.total]]),
-                              grid, "grid").numpy()
+    out.update({f"comm_{k}": np.asarray(v) for k, v in counted.items()})
     return out
 
 
@@ -269,14 +252,13 @@ def run_a2a(task, device):
 
 def launch(tmp_path, worlds, device: str = "cpu", timeout: float = 240.0):
     """Run each world's tasks (``{world size: [task, …]}``) on that many
-    rank processes of this script, every world at once, and return {task
-    name: its npz as a dict}. Raises with the ranks' output if any rank
-    fails or outlives ``timeout`` seconds (every rank is killed then)."""
-    import subprocess
+    rank processes of this script, every world at once
+    (``tools.ranks.run_processes``), and return {task name: its npz as a
+    dict}. Raises with the rank's output if any rank fails or outlives
+    ``timeout`` seconds (every rank is killed then)."""
     import tempfile
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO
-    procs, works = [], []
+    from openkeonspark_tpu_torch.tools.ranks import run_processes
+    cmds, names, works = [], [], []
     for world, tasks in worlds.items():
         work = tempfile.mkdtemp(dir=str(tmp_path))
         works.append((work, tasks))
@@ -285,23 +267,10 @@ def launch(tmp_path, worlds, device: str = "cpu", timeout: float = 240.0):
             json.dump({"init_file": os.path.join(work, "pg"),
                        "out_dir": work, "device": device, "tasks": tasks,
                        "timeout": timeout}, f)
-        procs += [(world, r, subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), job, str(r),
-             str(world)], cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)) for r in range(world)]
-    outs = []
-    try:
-        for _, _, p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for _, _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for (world, r, p), out in zip(procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(f"rank {r} of {world} exited "
-                               f"{p.returncode}:\n{out[-3000:]}")
+        cmds += [[sys.executable, os.path.abspath(__file__), job, str(r),
+                  str(world)] for r in range(world)]
+        names += [f"rank {r} of world {world}" for r in range(world)]
+    run_processes(cmds, str(tmp_path), timeout, names=names, cwd=REPO)
     res = {}
     for work, tasks in works:
         for t in tasks:
@@ -349,6 +318,11 @@ def main():
                          **out)
     finally:
         dist.destroy_process_group()
+    # as tools/ranks.py: leave without the exit-time destructors, in which
+    # a gloo rank may abort after its work is done
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":
