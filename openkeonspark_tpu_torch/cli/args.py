@@ -77,7 +77,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=1)
     p.add_argument("--log_path", default="")
     p.add_argument("--trace_dir", default="",
-                   help="write a jax.profiler device trace of epoch 1")
+                   help="write a torch.profiler Chrome trace of epoch 1")
     p.add_argument("--export_format", default="json",
                    choices=["json", "npz"],
                    help="embedding export format (json = reference "

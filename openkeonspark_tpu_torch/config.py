@@ -156,7 +156,7 @@ class Config:
     # --- logging --------------------------------------------------------
     log_every: int = 1               # epochs between loss prints
     log_path: str = ""               # jsonl structured log (empty = stdout only)
-    trace_dir: str = ""              # jax.profiler trace of epoch 1 (empty = off)
+    trace_dir: str = ""              # torch.profiler trace of epoch 1 (empty = off)
 
     def __post_init__(self):
         if self.model not in ("transe", "transh", "transr", "transd",

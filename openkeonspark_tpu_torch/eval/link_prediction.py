@@ -54,7 +54,10 @@ their generic route too. Ids ≥ n_ent are masked out of the count: the zero
 pad rows score 0, which beats any gold of positive dot product. ``S`` is
 held to :data:`BILINEAR_SWEEP_ELEMS` elements: a larger entity table is
 swept in blocks of rows, twice (the gold and known-true scores first, then
-the count)."""
+the count).
+
+An evaluation, its preparation, each chunk and each group's copy of the
+ranks to the host open the ``okst.eval.*`` spans of ``obs.py``."""
 
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ from openkeonspark_tpu_torch.eval.scoring import (BILINEAR,
                                                   score_block)
 from openkeonspark_tpu_torch.models.base import get_model
 from openkeonspark_tpu_torch.models.transh import unit
+from openkeonspark_tpu_torch.obs import span
 from openkeonspark_tpu_torch.ops import rank as rank_ops
 from openkeonspark_tpu_torch.runtime import (check_supported, eval_chunk_size,
                                              full_fp32_matmul, torch_dtype)
@@ -420,25 +424,28 @@ def _grouped_link_prediction(params, cfg: Config, ds: Dataset,
     out = {k: [] for k in ("raw_tail", "filt_tail", "raw_head", "filt_head")}
     with full_fp32_matmul():
         for ci, rho in enumerate(rel.tolist()):
-            proj = project(rho)                          # [rows, d']
-            rvec = Rt[rho]
-            hq, tq = h[ci], t[ci]
-            kt = known_matrix(vals_t, ot[ci], ct[ci], k_max, rows)
-            kh = known_matrix(vals_h, oh[ci], ch[ci], k_max, rows)
-            for keys, q, sign, gold, known in (
-                    (("raw_tail", "filt_tail"),
-                     proj[hq.long()] + rvec, -1.0, tq, kt),
-                    (("raw_head", "filt_head"),
-                     rvec - proj[tq.long()], 1.0, hq, kh)):
-                count, scores = _scorers("transe", (q.contiguous(), proj),
-                                         sign, cfg.p_norm, ds.n_ent, plain)
-                for k, v in zip(keys, _count_chunk(count, scores, gold,
-                                                   known, ds.n_ent)):
-                    out[k].append(v)
+            with span("okst.eval.chunk"):
+                proj = project(rho)                      # [rows, d']
+                rvec = Rt[rho]
+                hq, tq = h[ci], t[ci]
+                kt = known_matrix(vals_t, ot[ci], ct[ci], k_max, rows)
+                kh = known_matrix(vals_h, oh[ci], ch[ci], k_max, rows)
+                for keys, q, sign, gold, known in (
+                        (("raw_tail", "filt_tail"),
+                         proj[hq.long()] + rvec, -1.0, tq, kt),
+                        (("raw_head", "filt_head"),
+                         rvec - proj[tq.long()], 1.0, hq, kh)):
+                    count, scores = _scorers(
+                        "transe", (q.contiguous(), proj), sign, cfg.p_norm,
+                        ds.n_ent, plain)
+                    for k, v in zip(keys, _count_chunk(count, scores, gold,
+                                                       known, ds.n_ent)):
+                        out[k].append(v)
     ranks = {k: np.empty(len(triples), np.int64) for k in out}
-    for k, v in out.items():
-        # pad slots repeat their chunk's first triple: equal values
-        ranks[k][posm.reshape(-1)] = torch.cat(v).cpu().numpy()
+    with span("okst.eval.fetch"):
+        for k, v in out.items():
+            # pad slots repeat their chunk's first triple: equal values
+            ranks[k][posm.reshape(-1)] = torch.cat(v).cpu().numpy()
     if log is not None:
         log(f"link-pred ({cfg.model} grouped) {len(triples)}/{len(triples)}")
     return ranks
@@ -468,17 +475,19 @@ def _chunked_link_prediction(cfg: Config, triples: np.ndarray, offs,
         ot, ct, oh, ch = dv(offt), dv(cntt), dv(offh), dv(cnth)
         out = {k: [] for k in ranks}
         for c in range(0, e - s, chunk):
-            sl = slice(c, c + chunk)
-            kt = known_matrix(vals_t, ot[sl], ct[sl], k_max, rows)
-            kh = known_matrix(vals_h, oh[sl], ch[sl], k_max, rows)
-            for replace, gold, known in (("tail", t[sl], kt),
-                                         ("head", h[sl], kh)):
-                raw, filt = rank_chunk(h[sl], t[sl], r[sl], replace, gold,
-                                       known)
-                out[f"raw_{replace}"].append(raw)
-                out[f"filt_{replace}"].append(filt)
-        for k in ranks:
-            ranks[k][s:e] = torch.cat(out[k]).cpu().numpy()
+            with span("okst.eval.chunk"):
+                sl = slice(c, c + chunk)
+                kt = known_matrix(vals_t, ot[sl], ct[sl], k_max, rows)
+                kh = known_matrix(vals_h, oh[sl], ch[sl], k_max, rows)
+                for replace, gold, known in (("tail", t[sl], kt),
+                                             ("head", h[sl], kh)):
+                    raw, filt = rank_chunk(h[sl], t[sl], r[sl], replace,
+                                           gold, known)
+                    out[f"raw_{replace}"].append(raw)
+                    out[f"filt_{replace}"].append(filt)
+        with span("okst.eval.fetch"):
+            for k in ranks:
+                ranks[k][s:e] = torch.cat(out[k]).cpu().numpy()
         if log is not None:
             log(f"{label} {e}/{n}")
     return ranks
@@ -519,33 +528,35 @@ def link_prediction(params: Dict[str, torch.Tensor], cfg: Config,
         triples = ds.test
     if triples is None or len(triples) == 0:
         raise ValueError("no test triples")
-    dev = params["ent_embeddings"].device
-    offs, k_max, vals_t, vals_h = known_windows(index, triples, dev)
-    guard_finite_params(params)
-    params = {k: v.float() for k, v in params.items()}
-    route = eval_route(cfg)
-    if route == "grouped":
-        ranks = _grouped_link_prediction(params, cfg, ds, triples, offs,
-                                         k_max, vals_t, vals_h, plain, log)
-        return LinkPredictionResult.from_ranks(ranks)
-    if route == "generic":
-        dt = torch_dtype(cfg.eval_dtype)
-        gp = {k: v.to(dt) for k, v in params.items()}
+    with span("okst.eval.evaluation"):
+        dev = params["ent_embeddings"].device
+        route = eval_route(cfg)
+        with span("okst.eval.prepare"):
+            offs, k_max, vals_t, vals_h = known_windows(index, triples, dev)
+            guard_finite_params(params)
+            params = {k: v.float() for k, v in params.items()}
+            if route == "generic":
+                gp = {k: v.to(torch_dtype(cfg.eval_dtype))
+                      for k, v in params.items()}
+            # TransD's per-entity dot, once per evaluation and shared by
+            # every count and id score
+            cdot = rank_ops.transd_cdot(params) \
+                if route == "kernel" and cfg.model == "transd" else None
+        if route == "grouped":
+            ranks = _grouped_link_prediction(params, cfg, ds, triples, offs,
+                                             k_max, vals_t, vals_h, plain,
+                                             log)
+            return LinkPredictionResult.from_ranks(ranks)
+        if route == "generic":
+            def rank_chunk(h, t, r, replace, gold, known):
+                return _rank_chunk(gp, cfg, h, t, r, gold, known, replace,
+                                   ds.n_ent)
+        else:
+            def rank_chunk(h, t, r, replace, gold, known):
+                count, scores = _chunk_scorers(cfg, params, cdot, h, t, r,
+                                               replace, ds.n_ent, plain)
+                return _count_chunk(count, scores, gold, known, ds.n_ent)
 
-        def rank_chunk(h, t, r, replace, gold, known):
-            return _rank_chunk(gp, cfg, h, t, r, gold, known, replace,
-                               ds.n_ent)
-    else:
-        # TransD's per-entity dot, once per evaluation and shared by every
-        # count and id score
-        cdot = rank_ops.transd_cdot(params) if cfg.model == "transd" \
-            else None
-
-        def rank_chunk(h, t, r, replace, gold, known):
-            count, scores = _chunk_scorers(cfg, params, cdot, h, t, r,
-                                           replace, ds.n_ent, plain)
-            return _count_chunk(count, scores, gold, known, ds.n_ent)
-
-    return LinkPredictionResult.from_ranks(_chunked_link_prediction(
-        cfg, triples, offs, k_max, vals_t, vals_h,
-        params["ent_embeddings"].shape[0], dev, rank_chunk, log))
+        return LinkPredictionResult.from_ranks(_chunked_link_prediction(
+            cfg, triples, offs, k_max, vals_t, vals_h,
+            params["ent_embeddings"].shape[0], dev, rank_chunk, log))

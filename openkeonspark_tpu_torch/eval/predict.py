@@ -7,7 +7,9 @@ through M_ρ), every candidate entity is scored block by block
 table once a query), in ``cfg.eval_dtype``, and the k best (lowest score)
 of the ids < n_ent are taken, read as fp32 (the reference's
 ``predict.py:37-38``), by a stable sort: equal scores (common in bf16) come
-lowest id first, as ``lax.top_k`` gives them in the reference."""
+lowest id first, as ``lax.top_k`` gives them in the reference. A query
+and its stages (build, score, select, fetch) open the ``okst.topk.*``
+spans of ``obs.py``."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from openkeonspark_tpu_torch.eval.classification import (Thresholds,
 from openkeonspark_tpu_torch.eval.scoring import (CANDIDATE_TABLES,
                                                   build_queries, score_block)
 from openkeonspark_tpu_torch.models import get_model
+from openkeonspark_tpu_torch.obs import span
 from openkeonspark_tpu_torch.runtime import check_supported
 
 
@@ -29,18 +32,25 @@ from openkeonspark_tpu_torch.runtime import check_supported
 def _topk_entities(params: Dict[str, torch.Tensor], cfg: Config, n_ent: int,
                    h: int, t: int, r: int, replace: str,
                    k: int) -> Tuple[np.ndarray, np.ndarray]:
-    dev = params["ent_embeddings"].device
-    ids = lambda x: torch.tensor([x], dtype=torch.long, device=dev)  # noqa: E731
-    q = build_queries(params, ids(h), ids(t), ids(r), replace, cfg)
-    block = cfg.eval_block
-    scores = torch.cat([
-        score_block(q, {name: params[name][c0:c0 + block]
-                        for name in CANDIDATE_TABLES[cfg.model]},
-                    replace, cfg)[0].float()
-        for c0 in range(0, n_ent, block)])[:n_ent]
-    best, idx = torch.sort(scores, stable=True)
-    k = min(k, n_ent)
-    return idx[:k].to(torch.int32).cpu().numpy(), best[:k].cpu().numpy()
+    with span("okst.topk.query"):
+        dev = params["ent_embeddings"].device
+        with span("okst.topk.build"):
+            ids = lambda x: torch.tensor(  # noqa: E731
+                [x], dtype=torch.long, device=dev)
+            q = build_queries(params, ids(h), ids(t), ids(r), replace, cfg)
+        block = cfg.eval_block
+        with span("okst.topk.score"):
+            scores = torch.cat([
+                score_block(q, {name: params[name][c0:c0 + block]
+                                for name in CANDIDATE_TABLES[cfg.model]},
+                            replace, cfg)[0].float()
+                for c0 in range(0, n_ent, block)])[:n_ent]
+        with span("okst.topk.select"):
+            best, idx = torch.sort(scores, stable=True)
+            k = min(k, n_ent)
+            top_ids, top_scores = idx[:k].to(torch.int32), best[:k]
+        with span("okst.topk.fetch"):
+            return top_ids.cpu().numpy(), top_scores.cpu().numpy()
 
 
 def predict_tail_entity(params, cfg: Config, n_ent: int, n_rel: int,

@@ -14,7 +14,9 @@ work and not its enqueueing. ``cfg.trace_dir`` records the second epoch
 (epoch 1; the first carries the warm-up) with ``torch.profiler``, CPU and
 CUDA activities on a card, the CPU alone on the CPU, and writes it as a
 Chrome trace, ``epoch1.pt.trace.json``, into ``trace_dir``: the analog of
-the JAX package's ``jax.profiler`` trace (``loop.py:175-206``). Every
+the JAX package's ``jax.profiler`` trace (``loop.py:175-206``), with the
+step's stage spans (``obs.py``: ``okst.train.*``, and
+``okst.train.host_wait`` around the host sampler's wait). Every
 checkpoint's manifest records the vocabulary sizes (``n_ent``,
 ``n_rel``), so an incremental warm start can read them from any step.
 The host sampler's groups come from ``sampling/host.py::HostPipeline``
@@ -39,6 +41,7 @@ from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.data.dataset import Dataset
 from openkeonspark_tpu_torch.data.index import KGIndex, build_kg_index
 from openkeonspark_tpu_torch.models.base import get_model
+from openkeonspark_tpu_torch.obs import span
 from openkeonspark_tpu_torch.sampling.device import DeviceSampler
 from openkeonspark_tpu_torch.train.step import (TrainState,
                                                 build_group_runner,
@@ -195,7 +198,12 @@ def train(cfg: Config, ds: Dataset, device: torch.device,
                             batch_size, cfg.negative_ent, cfg.negative_rel,
                             cfg.bern, seed=cfg.seed + state.step,
                             group_sizes=sizes, device=device)
-        groups = [(lambda st, _s, _g: host_run(st, pipe.next()), size)
+
+        def next_group():
+            with span("okst.train.host_wait"):
+                return pipe.next()
+
+        groups = [(lambda st, _s, _g: host_run(st, next_group()), size)
                   for size in sizes]
         sampler = None
     else:

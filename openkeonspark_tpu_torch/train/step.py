@@ -17,7 +17,11 @@ The JAX package's TPU-only gates (``d_ent % 8`` and the backend test) are
 dropped. TransR with relation negatives, or with ``grouped_transr=False``,
 takes the generic step: it gathers one ``[d_e·d_r]`` matrix per slot row,
 and its ``transfer_matrix`` rows are updated through the wide-row scatter
-kernel B5 (``optim.scatter_add_rows``)."""
+kernel B5 (``optim.scatter_add_rows``).
+
+Each stage of a step (sampling, gather, score, grad, update), the step and
+its group open the ``okst.train.*`` spans of ``obs.py``, which a running
+profiler records and which cost one check otherwise."""
 
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import (Gather, KGEModel, Params,
                                                  init_tables, pnorm)
+from openkeonspark_tpu_torch.obs import span
 from openkeonspark_tpu_torch.ops.grouped import grouped_project, run_offsets
 from openkeonspark_tpu_torch.runtime import (NotPortedError,
                                              check_model_ported, torch_dtype)
@@ -107,14 +112,17 @@ def slot_loss_and_grads(model: KGEModel, cfg: Config, slots: Dict,
     """Scalar loss and its gradients with respect to the gathered slot
     rows. Slots are flat ``[S·B, d]`` or one ``[B, d]`` block shared by all
     segments; both are viewed as ``[S, B, d]``."""
-    leaves = {k: v.detach().requires_grad_() for k, v in slots.items()}
     with torch.enable_grad():
-        shaped = {k: v.view(v.shape[0] // B, B, v.shape[-1])
-                  for k, v in leaves.items()}
-        scores = model.score(shaped, cfg).expand(1 + n_neg, B)
-        loss = margin_ranking_loss(scores[0], scores[1:].T, cfg.margin,
-                                   cfg.loss_mode)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with span("okst.train.score"):
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in slots.items()}
+            shaped = {k: v.view(v.shape[0] // B, B, v.shape[-1])
+                      for k, v in leaves.items()}
+            scores = model.score(shaped, cfg).expand(1 + n_neg, B)
+            loss = margin_ranking_loss(scores[0], scores[1:].T, cfg.margin,
+                                       cfg.loss_mode)
+        with span("okst.train.grad"):
+            grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
 
@@ -197,46 +205,50 @@ def loss_and_row_grads_transr_grouped(model: KGEModel, cfg: Config,
     S = 1 + nE
     de, dr = cfg.d_ent, cfg.d_rel
 
-    order = torch.sort(batch.r, stable=True).indices
-    bs = SampledBatch(
-        h=batch.h[order], t=batch.t[order], r=batch.r[order],
-        neg_h=None if batch.neg_h is None else batch.neg_h[order],
-        neg_t=None if batch.neg_t is None else batch.neg_t[order])
-    h_ids = [bs.h] + [bs.neg_h[:, k] for k in range(nE)]
-    t_ids = [bs.t] + [bs.neg_t[:, k] for k in range(nE)]
-    E = params["ent_embeddings"]
-    tm = params["transfer_matrix"]
-    rows = tm.shape[0]
-    leaves = {
-        "h_e": E[torch.cat(h_ids)],                          # [S·B, de]
-        "t_e": E[torch.cat(t_ids)],
-        "r_e": params["rel_embeddings"][bs.r],               # [B, dr]
-    }
-    leaves = {k: v.requires_grad_() for k, v in leaves.items()}
-    m3 = tm.detach().view(rows, de, dr).requires_grad_()     # no copy
-    # b-major row stream: column b's 2S slot rows are consecutive, so the
-    # sorted relation order carries over to the rows
-    rel_rows = bs.r.repeat_interleave(2 * S)
-    rel_off = run_offsets(rel_rows, rows)
+    with span("okst.train.gather"):
+        order = torch.sort(batch.r, stable=True).indices
+        bs = SampledBatch(
+            h=batch.h[order], t=batch.t[order], r=batch.r[order],
+            neg_h=None if batch.neg_h is None else batch.neg_h[order],
+            neg_t=None if batch.neg_t is None else batch.neg_t[order])
+        h_ids = [bs.h] + [bs.neg_h[:, k] for k in range(nE)]
+        t_ids = [bs.t] + [bs.neg_t[:, k] for k in range(nE)]
+        E = params["ent_embeddings"]
+        tm = params["transfer_matrix"]
+        rows = tm.shape[0]
+        leaves = {
+            "h_e": E[torch.cat(h_ids)],                      # [S·B, de]
+            "t_e": E[torch.cat(t_ids)],
+            "r_e": params["rel_embeddings"][bs.r],           # [B, dr]
+        }
+        leaves = {k: v.requires_grad_() for k, v in leaves.items()}
+        m3 = tm.detach().view(rows, de, dr).requires_grad_()  # no copy
+        # b-major row stream: column b's 2S slot rows are consecutive, so
+        # the sorted relation order carries over to the rows
+        rel_rows = bs.r.repeat_interleave(2 * S)
+        rel_off = run_offsets(rel_rows, rows)
 
     with torch.enable_grad():
-        x = torch.cat([leaves["h_e"].view(S, B, de),
-                       leaves["t_e"].view(S, B, de)])        # [2S, B, de]
-        x = x.transpose(0, 1).reshape(2 * S * B, de)
-        y = grouped_project(m3, x, rel_rows, rel_off, plain=plain)
-        y = y.view(B, 2 * S, dr).transpose(0, 1)             # [2S, B, dr]
-        res = y[:S] + leaves["r_e"][None] - y[S:]
-        scores = pnorm(res, cfg.p_norm)                      # [S, B]
-        loss = margin_ranking_loss(scores[0], scores[1:].T, cfg.margin,
-                                   cfg.loss_mode)
-        grads = torch.autograd.grad(loss, [*leaves.values(), m3])
+        with span("okst.train.score"):
+            x = torch.cat([leaves["h_e"].view(S, B, de),
+                           leaves["t_e"].view(S, B, de)])    # [2S, B, de]
+            x = x.transpose(0, 1).reshape(2 * S * B, de)
+            y = grouped_project(m3, x, rel_rows, rel_off, plain=plain)
+            y = y.view(B, 2 * S, dr).transpose(0, 1)         # [2S, B, dr]
+            res = y[:S] + leaves["r_e"][None] - y[S:]
+            scores = pnorm(res, cfg.p_norm)                  # [S, B]
+            loss = margin_ranking_loss(scores[0], scores[1:].T, cfg.margin,
+                                       cfg.loss_mode)
+        with span("okst.train.grad"):
+            grads = torch.autograd.grad(loss, [*leaves.values(), m3])
 
-    updates = merged_row_updates(_ENT_REL_GATHERS, bs,
-                                 dict(zip(leaves, grads[:3])))
-    touched = torch.zeros(rows, dtype=torch.bool, device=tm.device)
-    touched[bs.r] = True
-    updates["transfer_matrix"] = DenseUpdate(
-        grad=grads[3].view(rows, de * dr), touched=touched)
+    with span("okst.train.update"):
+        updates = merged_row_updates(_ENT_REL_GATHERS, bs,
+                                     dict(zip(leaves, grads[:3])))
+        touched = torch.zeros(rows, dtype=torch.bool, device=tm.device)
+        touched[bs.r] = True
+        updates["transfer_matrix"] = DenseUpdate(
+            grad=grads[3].view(rows, de * dr), touched=touched)
     return loss.detach(), updates
 
 
@@ -247,9 +259,11 @@ def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
     if use_grouped_transr(cfg):
         return loss_and_row_grads_transr_grouped(model, cfg, params, batch)
     B = batch.h.shape[0]
-    slots, n_neg = gather_slots_structured(model, params, batch)
+    with span("okst.train.gather"):
+        slots, n_neg = gather_slots_structured(model, params, batch)
     loss, g_slots = slot_loss_and_grads(model, cfg, slots, B, n_neg)
-    return loss, merged_row_updates(model.gathers(), batch, g_slots)
+    with span("okst.train.update"):
+        return loss, merged_row_updates(model.gathers(), batch, g_slots)
 
 
 def check_train_supported(cfg: Config) -> None:
@@ -277,9 +291,11 @@ def build_train_step(model: KGEModel, cfg: Config, batch_size: int
 
     def step_fn(state: TrainState, sampler: DeviceSampler,
                 bits: torch.Tensor):
-        return batch_step(state, sampler.sample(
-            batch_size, cfg.negative_ent, cfg.negative_rel, cfg.bern,
-            bits=bits))
+        with span("okst.train.step"):
+            with span("okst.train.sampling"):
+                batch = sampler.sample(batch_size, cfg.negative_ent,
+                                       cfg.negative_rel, cfg.bern, bits=bits)
+            return batch_step(state, batch)
 
     step_fn.bits_shape = (batch_size,
                           DeviceSampler.bits_cols(cfg.negative_ent,
@@ -295,25 +311,28 @@ def build_group_runner(step_fn: Callable, steps: int) -> Callable:
 
     def run(state: TrainState, sampler: DeviceSampler,
             gen: torch.Generator):
-        bits = sampler.draw_bits((steps,) + step_fn.bits_shape, gen)
-        losses = []
-        for s in range(steps):
-            state, loss = step_fn(state, sampler, bits[s])
-            losses.append(loss)
-        # a bf16 table's loss is bf16; the mean is fp32
-        return state, torch.stack(losses).float().mean()
+        with span("okst.train.group"):
+            bits = sampler.draw_bits((steps,) + step_fn.bits_shape, gen)
+            losses = []
+            for s in range(steps):
+                state, loss = step_fn(state, sampler, bits[s])
+                losses.append(loss)
+            # a bf16 table's loss is bf16; the mean is fp32
+            return state, torch.stack(losses).float().mean()
 
     return run
 
 
 def build_batch_step(model: KGEModel, cfg: Config) -> Callable:
-    """One step on a given batch: ``(state, batch) → (state, loss)``."""
+    """One step on a given batch: ``(state, batch) → (state, loss)``.
+    Its caller opens the step's span."""
     opt = make_optimizer(cfg)
 
     def batch_step(state: TrainState, batch: SampledBatch):
         loss, updates = loss_and_row_grads(model, cfg, state.params, batch)
-        params, opt_state = opt.apply(state.params, state.opt_state,
-                                      updates, state.step)
+        with span("okst.train.update"):
+            params, opt_state = opt.apply(state.params, state.opt_state,
+                                          updates, state.step)
         return TrainState(params, opt_state, state.step + 1), loss
 
     return batch_step
@@ -334,10 +353,13 @@ def build_host_scan_steps(model: KGEModel, cfg: Config,
         batch_step = build_batch_step(model, cfg)
 
     def run(state: TrainState, batches: SampledBatch):
-        losses = []
-        for s in range(batches.h.shape[0]):
-            state, loss = batch_step(state, batches.map(lambda x: x[s]))
-            losses.append(loss)
-        return state, torch.stack(losses).float().mean()
+        with span("okst.train.group"):
+            losses = []
+            for s in range(batches.h.shape[0]):
+                with span("okst.train.step"):
+                    state, loss = batch_step(state,
+                                             batches.map(lambda x: x[s]))
+                losses.append(loss)
+            return state, torch.stack(losses).float().mean()
 
     return run
