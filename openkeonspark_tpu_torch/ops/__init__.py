@@ -1,2 +1,3 @@
 """Hand-written CUDA kernels (``csrc/``, built by ``build.py``) and their
-plain PyTorch versions (``rank.py``, ``grouped.py``, ``scatter.py``)."""
+plain PyTorch versions (``rank.py``, ``grouped.py``, ``scatter.py``,
+``merge.py``)."""

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_L = ctypes.c_int64
 # C signature of each launcher: every one returns its cudaError_t as int
 SIGNATURES = {
     # q, table, gold, gold_ids, counts, C, D, n_ent, sign, p, stream
@@ -58,6 +59,13 @@ SIGNATURES = {
     # table, delta, order, off, rows, width, stream
     "okst_scatter_add_rows_sorted": (_P, _P, _P, _P, _I, _I, _P),
     "okst_scatter_add_rows_sorted_bf16": (_P, _P, _P, _P, _I, _I, _P),
+    # h, h_st, t, t_st, neg_h, nh_row, nh_col, neg_t, nt_row, nt_col, gh,
+    # gh_st, gt, gt_st, ids, out, B, nE, nR, d, stream
+    "okst_merge_entity_rows": (_P, _L, _P, _L, _P, _L, _L, _P, _L, _L, _P, _L,
+                               _P, _L, _P, _P, _I, _I, _I, _I, _P),
+    "okst_merge_entity_rows_bf16": (_P, _L, _P, _L, _P, _L, _L, _P, _L, _L,
+                                    _P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
+                                    _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

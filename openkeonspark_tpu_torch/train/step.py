@@ -35,6 +35,7 @@ from openkeonspark_tpu_torch.models.base import (Gather, KGEModel, Params,
                                                  init_tables, pnorm)
 from openkeonspark_tpu_torch.obs import span
 from openkeonspark_tpu_torch.ops.grouped import grouped_project, run_offsets
+from openkeonspark_tpu_torch.ops.merge import merge_entity_rows
 from openkeonspark_tpu_torch.runtime import (NotPortedError,
                                              check_model_ported, torch_dtype)
 from openkeonspark_tpu_torch.sampling.device import (DeviceSampler,
@@ -130,14 +131,12 @@ def merged_row_updates(gathers: Tuple[Gather, ...], batch: SampledBatch,
                        g_slots: Dict) -> Updates:
     """(table → [(ids, row grads)]) with structurally duplicate id streams
     merged. An entity-corrupted negative keeps its uncorrupted side equal
-    to the positive's id (``ch[k]`` marks head corruption), and relation
-    negatives reuse both entities, so the entity update shrinks to
-    ``B·(2 + negE)`` rows and the relation update to ``B·(1 + negR)``."""
+    to the positive's id, and relation negatives reuse both entities, so
+    the entity update shrinks to ``B·(2 + negE)`` rows
+    (``ops/merge.py::merge_entity_rows``: one kernel a table on the card)
+    and the relation update to ``B·(1 + negR)``."""
     B = batch.h.shape[0]
     nE, nR = _n_neg(batch)
-    ch = [(batch.neg_h[:, k] != batch.h)[:, None] for k in range(nE)]
-    corrupted = [torch.where(ch[k][:, 0], batch.neg_h[:, k],
-                             batch.neg_t[:, k]) for k in range(nE)]
 
     def seg(g, i):  # negative segment i of a slot's gradient stream
         return g[B * (1 + i):B * (2 + i)]
@@ -161,18 +160,8 @@ def merged_row_updates(gathers: Tuple[Gather, ...], batch: SampledBatch,
                 out.append((batch.neg_rel[:, k], seg(g, nE + k)))
             out.append((batch.r, base))
         else:  # entity table: one h-anchored and one t-anchored slot
-            gh, gt = a["h"], a["t"]
-            base_h, base_t = gh[:B], gt[:B]
-            for k in range(nE):
-                sh, st = seg(gh, k), seg(gt, k)
-                base_h = base_h + torch.where(ch[k], 0.0, sh)
-                base_t = base_t + torch.where(ch[k], st, 0.0)
-                out.append((corrupted[k], torch.where(ch[k], sh, st)))
-            for k in range(nE, nE + nR):       # relation negatives reuse h, t
-                base_h = base_h + seg(gh, k)
-                base_t = base_t + seg(gt, k)
-            out.append((batch.h, base_h))
-            out.append((batch.t, base_t))
+            out += merge_entity_rows(batch.h, batch.t, batch.neg_h,
+                                     batch.neg_t, a["h"], a["t"], nR)
     return updates
 
 
@@ -245,8 +234,10 @@ def loss_and_row_grads_transr_grouped(model: KGEModel, cfg: Config,
     with span("okst.train.update"):
         updates = merged_row_updates(_ENT_REL_GATHERS, bs,
                                      dict(zip(leaves, grads[:3])))
-        touched = torch.zeros(rows, dtype=torch.bool, device=tm.device)
-        touched[bs.r] = True
+        # built on the card: an index assignment of True would copy the
+        # Python scalar from pageable memory, a blocking copy
+        touched = torch.zeros(rows, dtype=torch.bool,
+                              device=tm.device).index_fill_(0, bs.r, True)
         updates["transfer_matrix"] = DenseUpdate(
             grad=grads[3].view(rows, de * dr), touched=touched)
     return loss.detach(), updates

@@ -262,3 +262,113 @@ def test_two_steps_keep_parity():
         np.testing.assert_allclose(state.params[k][:specs[k].rows].numpy(),
                                    dense[k], rtol=1e-5, atol=1e-6,
                                    err_msg=k)
+
+
+def _bf16_round(x):
+    """float32 → the nearest bf16 (ties to even), kept as float32."""
+    u = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _merge_oracle(b, g, nE, nR, rnd):
+    """NumPy oracle of ``merged_row_updates`` for TransE's two tables:
+    {table: [(ids, rows)]}, every add in fp32, then ``rnd``."""
+    h, t, r = b["h"], b["t"], b["r"]
+    B = h.shape[0]
+
+    def seg(x, i):
+        return x[B * (1 + i):B * (2 + i)]
+
+    zero = np.float32(0.0)
+    gh, gt, gr = g["h_e"], g["t_e"], g["r_e"]
+    base_h, base_t, ent = gh[:B], gt[:B], []
+    for k in range(nE):
+        ch = (b["neg_h"][:, k] != h)[:, None]
+        base_h = rnd(base_h + np.where(ch, zero, seg(gh, k)))
+        base_t = rnd(base_t + np.where(ch, seg(gt, k), zero))
+        ent.append((np.where(ch[:, 0], b["neg_h"][:, k], b["neg_t"][:, k]),
+                    np.where(ch, seg(gh, k), seg(gt, k))))
+    for k in range(nE, nE + nR):
+        base_h, base_t = rnd(base_h + seg(gh, k)), rnd(base_t + seg(gt, k))
+    ent += [(h, base_h), (t, base_t)]
+    if nR == 0:
+        rel = [(r, gr)]
+    else:
+        base = gr[:B]
+        for k in range(nE):
+            base = rnd(base + seg(gr, k))
+        rel = [(b["neg_rel"][:, k], seg(gr, nE + k)) for k in range(nR)]
+        rel.append((r, base))
+    return {"ent_embeddings": ent, "rel_embeddings": rel}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nR", [0, 2])
+@pytest.mark.parametrize("nE", [0, 1, 25])
+def test_merged_row_updates_match_numpy_oracle(nE, nR, dtype):
+    """``merged_row_updates`` on the CPU (the entity tables through
+    ``ops/merge.py``'s plain version, no launch) against a NumPy oracle:
+    the same pairs in the same order, the same ids, rows bit for bit. Its
+    batch corrupts heads, tails and neither (``neg_h == h`` and ``neg_t ==
+    t``), takes its ids as strided columns, and its positive rows hold
+    −0.0, which an add of +0.0 turns to +0.0."""
+    from openkeonspark_tpu_torch.ops import merge
+    B, d, n_ent = 37, 12, 50
+    rng = np.random.default_rng(100 * nE + nR)
+    rec = rng.integers(0, n_ent, size=(B, 3))
+    h, t = rec[:, 0], rec[:, 1]
+    mode = rng.integers(0, 3, size=(B, nE))     # head, tail, neither
+    other = rng.integers(0, n_ent, size=(B, nE))
+    neg_h = np.where(mode == 0, (h[:, None] + 1 + other) % n_ent, h[:, None])
+    neg_t = np.where(mode == 1, (t[:, None] + 1 + other) % n_ent, t[:, None])
+    assert nE == 0 or {0, 1, 2} <= set(mode.ravel())
+    negs = torch.from_numpy(np.concatenate([neg_h, neg_t], 1))
+    rec_t = torch.from_numpy(rec)
+    batch = SampledBatch(
+        h=rec_t[:, 0], t=rec_t[:, 1], r=rec_t[:, 2],
+        neg_h=negs[:, :nE] if nE else None,
+        neg_t=negs[:, nE:] if nE else None,
+        neg_rel=torch.from_numpy(rng.integers(0, 5, size=(B, nR)))
+        if nR else None)
+    S = 1 + nE + nR
+    g = {k: torch.randn(S * B if (k != "r_e" or nR) else B, d,
+                        generator=torch.Generator().manual_seed(i))
+         .to(dtype) for i, k in enumerate(("h_e", "t_e", "r_e"))}
+    g["h_e"][:B:3] = -0.0
+    g["t_e"][1:B:4] = -0.0
+    before = dict(merge.LAUNCHES)
+    got = tstep.merged_row_updates(get_model("transe").gathers(), batch, g)
+    assert merge.LAUNCHES == before
+    rnd = _bf16_round if dtype == torch.bfloat16 else (lambda x: x)
+    want = _merge_oracle(
+        {k: getattr(batch, k).numpy() for k in SampledBatch.FIELDS
+         if getattr(batch, k) is not None},
+        {k: v.float().numpy() for k, v in g.items()}, nE, nR, rnd)
+    assert list(got) == list(want)
+    assert len(got["ent_embeddings"]) == nE + 2
+    for table in want:
+        assert len(got[table]) == len(want[table]), table
+        for (ids, rows), (wids, wrows) in zip(got[table], want[table]):
+            assert ids.dtype == torch.int64 and rows.dtype == dtype
+            assert rows.shape == (B, d)
+            np.testing.assert_array_equal(ids.numpy(), wids, err_msg=table)
+            np.testing.assert_array_equal(
+                rows.float().numpy().view(np.uint32), wrows.view(np.uint32),
+                err_msg=table)
+    pairs = merge.merge_entity_rows(batch.h, batch.t, batch.neg_h,
+                                    batch.neg_t, g["h_e"], g["t_e"], nR)
+    assert merge.LAUNCHES == before
+    for (i, r), (wi, wr) in zip(pairs, got["ent_embeddings"]):
+        assert torch.equal(i, wi) and torch.equal(r, wr)
+
+
+def test_grouped_transr_touched_mask_marks_the_batch_relations():
+    """The grouped step's ``transfer_matrix`` mask is True exactly at the
+    relations of the batch."""
+    _, _, _, tparams, tbatch = _setup("transr", TRANSR, TRANSR_KG, 3, 96, 4)
+    _, upd = tstep.loss_and_row_grads_transr_grouped(
+        get_model("transr"), port_config(TRANSR), tparams, tbatch)
+    rows = tparams["transfer_matrix"].shape[0]
+    want = torch.bincount(tbatch.r, minlength=rows) > 0
+    assert torch.equal(upd["transfer_matrix"].touched, want)
