@@ -25,11 +25,17 @@ Training (``train/step.py``, ``train/loop.py``)
   the entity and relation gathers, ``run_offsets``).
 - ``okst.train.score``: the forward, scores and the margin loss
   (``slot_loss_and_grads``; the grouped TransR step: B4 forward).
+- ``okst.train.loss``: the loss of the step's scores
+  (``margin_ranking_loss``: the hinge, or the self-adversarial softmax
+  and log-sigmoids), inside ``okst.train.score`` on both routes.
 - ``okst.train.grad``: ``torch.autograd.grad`` (grouped TransR: B4
   backward).
 - ``okst.train.update``: twice a step, ``merged_row_updates`` (and the
   grouped step's dense ``transfer_matrix`` update) in the loss functions,
   then the optimizer's ``apply`` in ``build_batch_step``'s step.
+- ``okst.train.optim``: the optimizer's ``apply`` (SGD's adds, or a lazy
+  optimizer's sums, masks and moments), inside the second
+  ``okst.train.update`` span of ``build_batch_step``'s step.
 - ``okst.train.host_wait``: the wait for the host sampler's next stacked
   group (``train.loop.train``, ``--sampler host``).
 

@@ -19,9 +19,10 @@ takes the generic step: it gathers one ``[d_e·d_r]`` matrix per slot row,
 and its ``transfer_matrix`` rows are updated through the wide-row scatter
 kernel B5 (``optim.scatter_add_rows``).
 
-Each stage of a step (sampling, gather, score, grad, update), the step and
-its group open the ``okst.train.*`` spans of ``obs.py``, which a running
-profiler records and which cost one check otherwise."""
+Each stage of a step (sampling, gather, score with the loss inside it,
+grad, update with the optimizer inside it), the step and its group open
+the ``okst.train.*`` spans of ``obs.py``, which a running profiler records
+and which cost one check otherwise."""
 
 from __future__ import annotations
 
@@ -120,8 +121,9 @@ def slot_loss_and_grads(model: KGEModel, cfg: Config, slots: Dict,
             shaped = {k: v.view(v.shape[0] // B, B, v.shape[-1])
                       for k, v in leaves.items()}
             scores = model.score(shaped, cfg).expand(1 + n_neg, B)
-            loss = margin_ranking_loss(scores[0], scores[1:].T, cfg.margin,
-                                       cfg.loss_mode)
+            with span("okst.train.loss"):
+                loss = margin_ranking_loss(scores[0], scores[1:].T,
+                                           cfg.margin, cfg.loss_mode)
         with span("okst.train.grad"):
             grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
@@ -226,8 +228,9 @@ def loss_and_row_grads_transr_grouped(model: KGEModel, cfg: Config,
             y = y.view(B, 2 * S, dr).transpose(0, 1)         # [2S, B, dr]
             res = y[:S] + leaves["r_e"][None] - y[S:]
             scores = pnorm(res, cfg.p_norm)                  # [S, B]
-            loss = margin_ranking_loss(scores[0], scores[1:].T, cfg.margin,
-                                       cfg.loss_mode)
+            with span("okst.train.loss"):
+                loss = margin_ranking_loss(scores[0], scores[1:].T,
+                                           cfg.margin, cfg.loss_mode)
         with span("okst.train.grad"):
             grads = torch.autograd.grad(loss, [*leaves.values(), m3])
 
@@ -321,7 +324,7 @@ def build_batch_step(model: KGEModel, cfg: Config) -> Callable:
 
     def batch_step(state: TrainState, batch: SampledBatch):
         loss, updates = loss_and_row_grads(model, cfg, state.params, batch)
-        with span("okst.train.update"):
+        with span("okst.train.update"), span("okst.train.optim"):
             params, opt_state = opt.apply(state.params, state.opt_state,
                                           updates, state.step)
         return TrainState(params, opt_state, state.step + 1), loss

@@ -29,8 +29,9 @@ lp = importlib.import_module("openkeonspark_tpu_torch.eval.link_prediction")
 CPU = torch.device("cpu")
 KG = dict(n_ent=120, n_rel=5, n_triples=1500, n_valid=40, n_test=90, seed=3)
 S = 3                                         # steps a group
-STAGES = ["okst.train.gather", "okst.train.score", "okst.train.grad",
-          "okst.train.update", "okst.train.update"]
+STAGES = ["okst.train.gather", ("okst.train.score", ["okst.train.loss"]),
+          "okst.train.grad", "okst.train.update",
+          ("okst.train.update", ["okst.train.optim"])]
 
 
 @pytest.fixture(scope="module")
@@ -219,7 +220,9 @@ def test_trace_dir_trace_holds_the_spans(tmp_path, kg, sampler):
     want = {"okst.train.group": groups, "okst.train.step": cfg.nbatches,
             "okst.train.gather": cfg.nbatches,
             "okst.train.score": cfg.nbatches,
+            "okst.train.loss": cfg.nbatches,
             "okst.train.grad": cfg.nbatches,
+            "okst.train.optim": cfg.nbatches,
             "okst.train.update": 2 * cfg.nbatches}
     if sampler == "host":
         want["okst.train.host_wait"] = groups
