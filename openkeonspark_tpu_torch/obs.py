@@ -22,17 +22,22 @@ Training (``train/step.py``, ``train/loop.py``)
   ``build_train_step``'s step (absent on the host-sampler path).
 - ``okst.train.gather``: the slot rows' gathers (``loss_and_row_grads``:
   ``gather_slots_structured``; the grouped TransR step: the relation sort,
-  the entity and relation gathers, ``run_offsets``).
+  the entity and relation gathers, ``run_offsets``; RotatE's slot route:
+  the batch's checks and the kernels' output buffers, no gather).
 - ``okst.train.score``: the forward, scores and the margin loss
-  (``slot_loss_and_grads``; the grouped TransR step: B4 forward).
+  (``slot_loss_and_grads``; the grouped TransR step: B4 forward; RotatE's
+  slot route: the forward kernel).
 - ``okst.train.loss``: the loss of the step's scores
   (``margin_ranking_loss``: the hinge, or the self-adversarial softmax
   and log-sigmoids), inside ``okst.train.score`` on both routes.
 - ``okst.train.grad``: ``torch.autograd.grad`` (grouped TransR: B4
-  backward).
+  backward; RotatE's slot route: the loss's gradient with respect to the
+  scores, then the backward kernel, which writes the update pairs).
 - ``okst.train.update``: twice a step, ``merged_row_updates`` (and the
-  grouped step's dense ``transfer_matrix`` update) in the loss functions,
-  then the optimizer's ``apply`` in ``build_batch_step``'s step.
+  grouped step's dense ``transfer_matrix`` update; RotatE's slot route:
+  the pairs the backward kernel wrote, gathered by table) in the loss
+  functions, then the optimizer's ``apply`` in ``build_batch_step``'s
+  step.
 - ``okst.train.optim``: the optimizer's ``apply`` (SGD's adds, or a lazy
   optimizer's sums, masks and moments), inside the second
   ``okst.train.update`` span of ``build_batch_step``'s step.

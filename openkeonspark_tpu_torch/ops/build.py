@@ -66,6 +66,14 @@ SIGNATURES = {
     "okst_merge_entity_rows_bf16": (_P, _L, _P, _L, _P, _L, _L, _P, _L, _L,
                                     _P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
                                     _P),
+    # E, e_st, theta, th_st, h, h_st, t, t_st, r, r_st, neg_h, nh_row,
+    # nh_col, neg_t, nt_row, nt_col, scores, B, nE, d, stream
+    "okst_rotate_slot_scores": (_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P,
+                                _L, _L, _P, _L, _L, _P, _I, _I, _I, _P),
+    # the same tables and ids, then G, ids, out, g_theta, B, nE, d, stream
+    "okst_rotate_slot_grads": (_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P,
+                               _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _I,
+                               _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -75,9 +75,10 @@ def timed_best(fn: Callable, dev: torch.device, repeats: int = 3) -> float:
 def launch_counts() -> Dict[str, int]:
     """A snapshot of every kernel wrapper's launch counter
     (``ops/rank.py``, ``ops/grouped.py``, ``ops/scatter.py``,
-    ``ops/merge.py``)."""
-    from openkeonspark_tpu_torch.ops import grouped, merge, rank, scatter
-    return {k: v for mod in (rank, grouped, scatter, merge)
+    ``ops/merge.py``, ``ops/rotate_train.py``)."""
+    from openkeonspark_tpu_torch.ops import (grouped, merge, rank,
+                                             rotate_train, scatter)
+    return {k: v for mod in (rank, grouped, scatter, merge, rotate_train)
             for k, v in mod.LAUNCHES.items()}
 
 

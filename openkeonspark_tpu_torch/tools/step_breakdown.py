@@ -15,7 +15,10 @@ the host's launches. The full step's device time comes from
 For TransR the full step is the relation-grouped step (kernels B4 fwd and
 bwd); the grad prefix takes it too (``loss_and_row_grads``, as in the JAX
 package), while the gather and score prefixes decompose the generic
-step's per-row matrices.
+step's per-row matrices. RotatE with fp32 tables likewise takes its slot
+route (``ops/rotate_train.py``, which gathers no slot) in the grad prefix
+and the full step, while its gather and score prefixes decompose the
+generic step.
 
 Usage: python -m openkeonspark_tpu_torch.tools.step_breakdown
            [--config 4] [--steps 50] [--device cuda]

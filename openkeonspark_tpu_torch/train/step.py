@@ -13,6 +13,10 @@ TransR with entity negatives only takes the relation-grouped route
 (:func:`use_grouped_transr`): the batch is sorted by relation, every slot
 row is projected through the grouped kernels of ``ops/grouped.py`` (plain
 versions on the CPU) and the ``transfer_matrix`` gradient comes out dense.
+RotatE with fp32 tables and entity negatives only takes its slot route
+(:func:`use_rotate_slots`): ``ops/rotate_train.py``'s kernel pair scores
+the slots from their ids and writes the merged update rows, with no slot
+gathered (the plain versions on the CPU).
 The JAX package's TPU-only gates (``d_ent % 8`` and the backend test) are
 dropped. TransR with relation negatives, or with ``grouped_transr=False``,
 takes the generic step: it gathers one ``[d_e·d_r]`` matrix per slot row,
@@ -34,7 +38,9 @@ import torch
 from openkeonspark_tpu_torch.config import Config
 from openkeonspark_tpu_torch.models.base import (Gather, KGEModel, Params,
                                                  init_tables, pnorm)
+from openkeonspark_tpu_torch.models.rotate import RotatE
 from openkeonspark_tpu_torch.obs import span
+from openkeonspark_tpu_torch.ops import rotate_train
 from openkeonspark_tpu_torch.ops.grouped import grouped_project, run_offsets
 from openkeonspark_tpu_torch.ops.merge import merge_entity_rows
 from openkeonspark_tpu_torch.runtime import (NotPortedError,
@@ -246,12 +252,52 @@ def loss_and_row_grads_transr_grouped(model: KGEModel, cfg: Config,
     return loss.detach(), updates
 
 
+def use_rotate_slots(model: KGEModel, params: Params,
+                     batch: SampledBatch) -> bool:
+    """RotatE with fp32 tables and no relation negatives takes its slot
+    route (:func:`loss_and_row_grads_rotate`). bf16 tables keep the
+    generic step: its eager ops round after every op, and a fused kernel
+    would round elsewhere."""
+    return (model is RotatE and batch.neg_rel is None
+            and params["ent_embeddings"].dtype == torch.float32
+            and params["rel_embeddings"].dtype == torch.float32)
+
+
+def loss_and_row_grads_rotate(cfg: Config, params: Params,
+                              batch: SampledBatch):
+    """RotatE without gathered slots: the forward kernel scores the
+    positives and their entity negatives from their ids, the margin loss
+    runs under autograd on those scores alone, and the backward kernel
+    turns the scores' gradient into the entity table's merged update
+    pairs (``merge_entity_rows``' layout) and the phases' ``[B, d]``
+    gradient (``ops/rotate_train.py``; its plain versions on the CPU)."""
+    with span("okst.train.gather"):
+        slots = rotate_train.prepare(
+            params["ent_embeddings"], params["rel_embeddings"], batch.h,
+            batch.t, batch.r, batch.neg_h, batch.neg_t)
+    with torch.enable_grad():
+        with span("okst.train.score"):
+            scores = rotate_train.rotate_slot_scores(slots).requires_grad_()
+            with span("okst.train.loss"):
+                loss = margin_ranking_loss(scores[0], scores[1:].T,
+                                           cfg.margin, cfg.loss_mode)
+        with span("okst.train.grad"):
+            (g_scores,) = torch.autograd.grad(loss, [scores])
+            pairs, g_theta = rotate_train.rotate_slot_grads(slots, g_scores)
+    with span("okst.train.update"):
+        updates = {"ent_embeddings": pairs,
+                   "rel_embeddings": [(batch.r, g_theta)]}
+    return loss.detach(), updates
+
+
 def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
                        batch: SampledBatch):
     """Scalar loss and the merged (table → [(ids, row grads)]) updates;
     gradients are taken with respect to the gathered rows only."""
     if use_grouped_transr(cfg):
         return loss_and_row_grads_transr_grouped(model, cfg, params, batch)
+    if use_rotate_slots(model, params, batch):
+        return loss_and_row_grads_rotate(cfg, params, batch)
     B = batch.h.shape[0]
     with span("okst.train.gather"):
         slots, n_neg = gather_slots_structured(model, params, batch)

@@ -163,16 +163,35 @@ def _parent(e):
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_loss_and_optim_spans_open_once_a_step(kg, name):
+def test_loss_and_optim_spans_open_once_a_step(kg, name, monkeypatch):
+    """Every stage span opens once a step (the update twice: the pairs,
+    then the optimizer) inside the step's span, on RotatE's slot route as
+    on the generic step; the loss inside the score, the optimizer inside
+    the second update."""
     ds, index = kg
+    routes = []
+    real = tstep.loss_and_row_grads_rotate
+
+    def spy(*a, **k):
+        routes.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(tstep, "loss_and_row_grads_rotate", spy)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _group(name, ds, index)
+    assert len(routes) == (STEPS if CONFIGS[name]["model"] == "rotate"
+                           else 0)
     evs = [e for e in prof.events() if e.name.startswith("okst.")]
     for span, parent in (("okst.train.loss", "okst.train.score"),
                          ("okst.train.optim", "okst.train.update")):
         got = [e for e in evs if e.name == span]
         assert len(got) == STEPS, span
         assert {_parent(e) for e in got} == {parent}, span
+    for span, per_step in (("okst.train.sampling", 1),
+                           ("okst.train.gather", 1), ("okst.train.score", 1),
+                           ("okst.train.grad", 1), ("okst.train.update", 2)):
+        got = [e for e in evs if e.name == span]
+        assert len(got) == per_step * STEPS, span
+        assert {_parent(e) for e in got} == {"okst.train.step"}, span
     steps = [e for e in evs if e.name == "okst.train.step"]
     assert len(steps) == STEPS
 
