@@ -32,12 +32,13 @@ Training (``train/step.py``, ``train/loop.py``)
   and log-sigmoids), inside ``okst.train.score`` on both routes.
 - ``okst.train.grad``: ``torch.autograd.grad`` (grouped TransR: B4
   backward; RotatE's slot route: the loss's gradient with respect to the
-  scores, then the backward kernel, which writes the update pairs).
+  scores, then the backward kernel, which writes the entity table's
+  update stream).
 - ``okst.train.update``: twice a step, ``merged_row_updates`` (and the
   grouped step's dense ``transfer_matrix`` update; RotatE's slot route:
-  the pairs the backward kernel wrote, gathered by table) in the loss
-  functions, then the optimizer's ``apply`` in ``build_batch_step``'s
-  step.
+  the backward kernel's stream and the phase gradient, keyed by table)
+  in the loss functions, then the optimizer's ``apply`` in
+  ``build_batch_step``'s step.
 - ``okst.train.optim``: the optimizer's ``apply`` (SGD's adds, or a lazy
   optimizer's sums, masks and moments), inside the second
   ``okst.train.update`` span of ``build_batch_step``'s step.

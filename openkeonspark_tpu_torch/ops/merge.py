@@ -13,17 +13,18 @@ rows: for each entity negative its corrupted id and row, then ``h`` with
 ``openkeonspark_tpu/train/step.py::merged_row_updates``, which XLA fuses.
 
 The kernel (``csrc/merge_rows.cu``) makes that in one pass, where the plain
-version takes about seven small kernels a negative. It writes one
-contiguous id stream and one gradient stream in the plain version's order,
-and returns the same list of ``(ids, grads)`` pairs as views of those two
-buffers, summed in the same order, so the two agree bit for bit in fp32 and
-bf16. CUDA tensors go through the kernel (or raise); CPU tensors, and a
-batch without negatives, whose pairs are already views of the slot
-gradients, go through the plain version."""
+version takes about seven small kernels a negative. Both return the
+table's update as one ``(ids [(nE + 2)·B], grads [(nE + 2)·B, d])``
+stream, the optimizers' format (``train/optim.py``): the kernel writes its
+two buffers in the plain version's order, summed in the same order, so the
+two agree bit for bit in fp32 and bf16. CUDA tensors go through the kernel
+(or raise); CPU tensors, and a batch without negatives, whose stream is the
+slot gradients' positive blocks joined once, go through the plain
+version."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,8 +38,6 @@ _LAUNCHERS = {
     torch.bfloat16: ("okst_merge_entity_rows_bf16", "merge_entity_rows_bf16"),
 }
 
-Pairs = List[Tuple[torch.Tensor, torch.Tensor]]
-
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
@@ -48,9 +47,11 @@ def reset_launch_counts() -> None:
 def merge_entity_rows_ref(h: torch.Tensor, t: torch.Tensor,
                           neg_h: Optional[torch.Tensor],
                           neg_t: Optional[torch.Tensor], gh: torch.Tensor,
-                          gt: torch.Tensor, n_rel_neg: int) -> Pairs:
-    """Plain version: ``[(corrupted ids k, rows k) for k < nE] + [(h,
-    base_h), (t, base_t)]``, each base summed negative by negative."""
+                          gt: torch.Tensor, n_rel_neg: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: the corrupted ids and rows of negative k for each k <
+    nE, then ``h`` with ``base_h`` and ``t`` with ``base_t``, each base
+    summed negative by negative, joined into one stream."""
     B = h.shape[0]
     nE = 0 if neg_h is None else neg_h.shape[1]
 
@@ -58,18 +59,18 @@ def merge_entity_rows_ref(h: torch.Tensor, t: torch.Tensor,
         return g[B * (1 + i):B * (2 + i)]
 
     base_h, base_t = gh[:B], gt[:B]
-    out = []
+    ids, rows = [], []
     for k in range(nE):
         ch = (neg_h[:, k] != h)[:, None]
         sh, st = seg(gh, k), seg(gt, k)
         base_h = base_h + torch.where(ch, 0.0, sh)
         base_t = base_t + torch.where(ch, st, 0.0)
-        out.append((torch.where(ch[:, 0], neg_h[:, k], neg_t[:, k]),
-                    torch.where(ch, sh, st)))
+        ids.append(torch.where(ch[:, 0], neg_h[:, k], neg_t[:, k]))
+        rows.append(torch.where(ch, sh, st))
     for k in range(nE, nE + n_rel_neg):      # relation negatives reuse h, t
         base_h = base_h + seg(gh, k)
         base_t = base_t + seg(gt, k)
-    return out + [(h, base_h), (t, base_t)]
+    return torch.cat(ids + [h, t]), torch.cat(rows + [base_h, base_t])
 
 
 def _ids_check(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
@@ -81,9 +82,10 @@ def _ids_check(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
 def merge_entity_rows(h: torch.Tensor, t: torch.Tensor,
                       neg_h: Optional[torch.Tensor],
                       neg_t: Optional[torch.Tensor], gh: torch.Tensor,
-                      gt: torch.Tensor, n_rel_neg: int) -> Pairs:
-    """The table's ``nE + 2`` update pairs, as :func:`merge_entity_rows_ref`
-    gives them. ``h``, ``t`` ``[B]`` and ``neg_h``, ``neg_t`` ``[B, nE]``
+                      gt: torch.Tensor, n_rel_neg: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The table's update stream, as :func:`merge_entity_rows_ref` gives
+    it. ``h``, ``t`` ``[B]`` and ``neg_h``, ``neg_t`` ``[B, nE]``
     int64, any strides; ``gh``, ``gt`` ``[(1 + nE + n_rel_neg)·B, d]``
     f32 or bf16, any row stride. CUDA tensors launch the kernel of the
     gradients' dtype, CPU tensors take the plain version."""
@@ -128,6 +130,4 @@ def merge_entity_rows(h: torch.Tensor, t: torch.Tensor,
                 n_rel_neg, d, torch.cuda.current_stream(dev).cuda_stream)
         check_launch(symbol, err)
         LAUNCHES[counter] += 1
-    # segment i of both buffers, cut by one call each
-    return list(zip(ids.view(nE + 2, B).unbind(0),
-                    grads.view(nE + 2, B, d).unbind(0)))
+    return ids, grads

@@ -4,8 +4,8 @@ ids: the CUDA kernel pair's wrappers and their plain PyTorch version.
 A RotatE training step scores, for each of its ``B`` positives, the
 positive and its ``nE`` entity negatives (``1 + nE`` slots), and needs
 only three things from them: the scores ``[1 + nE, B]``, the entity
-table's merged update pairs (``ops/merge.py``'s layout: for each negative
-its corrupted id and row, then ``h`` with ``base_h`` and ``t`` with
+table's merged update stream (``ops/merge.py``'s layout: for each negative
+its corrupted ids and rows, then ``h`` with ``base_h`` and ``t`` with
 ``base_t``) and the gradient of the positives' phases ``[B, d]``. The
 plain version gathers every slot row, runs ``models/rotate.py`` under
 autograd and merges the slot gradients (``merge_entity_rows_ref``), which
@@ -16,9 +16,9 @@ writes the scores, :func:`rotate_slot_grads` the update rows and the
 phase gradient, given the loss's gradient with respect to the scores.
 
 :func:`prepare` checks a batch's tables and ids and, on the card,
-allocates the kernels' outputs: one id buffer ``[(nE + 2)·B]``, one row
-buffer ``[(nE + 2)·B, 2d]`` (the pairs are views of them, as
-``merge_entity_rows`` returns them), the phase gradient and the scores.
+allocates the kernels' outputs: one id buffer ``[(nE + 2)·B]`` and one
+row buffer ``[(nE + 2)·B, 2d]`` (the update stream, as
+``merge_entity_rows`` returns it), the phase gradient and the scores.
 CUDA tensors launch the kernels (or raise), CPU tensors take the plain
 version. Given the same gradient of the scores, the two give the same
 update rows bit for bit; the scores and the phase gradient differ by the
@@ -27,7 +27,7 @@ order of fp32 sums (over the lanes, and over the slots), as
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,8 +38,6 @@ from openkeonspark_tpu_torch.ops.merge import merge_entity_rows_ref
 # launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else
 LAUNCHES: Dict[str, int] = {"rotate_slot_scores": 0, "rotate_slot_grads": 0}
-
-Pairs = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def reset_launch_counts() -> None:
@@ -118,9 +116,10 @@ def rotate_slot_scores_ref(s: RotateSlots) -> torch.Tensor:
 
 
 def rotate_slot_grads_ref(s: RotateSlots, g_scores: torch.Tensor
-                          ) -> Tuple[Pairs, torch.Tensor]:
-    """Plain version: (the entity table's ``nE + 2`` update pairs, the
-    phase gradient ``[B, d]``) of the loss whose gradient with respect to
+                          ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                     torch.Tensor]:
+    """Plain version: (the entity table's update stream ``(ids, rows)``,
+    the phase gradient ``[B, d]``) of the loss whose gradient with respect to
     the scores is ``g_scores`` ``[1 + nE, B]``: autograd through
     ``models/rotate.py`` on the gathered rows, then
     ``merge_entity_rows_ref``."""
@@ -169,11 +168,11 @@ def rotate_slot_scores(s: RotateSlots) -> torch.Tensor:
 
 
 def rotate_slot_grads(s: RotateSlots, g_scores: torch.Tensor
-                      ) -> Tuple[Pairs, torch.Tensor]:
-    """(update pairs, phase gradient) as :func:`rotate_slot_grads_ref`
+                      ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                 torch.Tensor]:
+    """(update stream, phase gradient) as :func:`rotate_slot_grads_ref`
     gives them: the backward kernel into ``s.ids``, ``s.rows`` and
-    ``s.g_theta`` for CUDA tensors (the pairs views of the two buffers),
-    the plain version for CPU tensors."""
+    ``s.g_theta`` for CUDA tensors, the plain version for CPU tensors."""
     if _device(s) == "cpu":
         return rotate_slot_grads_ref(s, g_scores)
     B, nE = s.neg_h.shape
@@ -182,6 +181,4 @@ def rotate_slot_grads(s: RotateSlots, g_scores: torch.Tensor
     if B:
         _launch("okst_rotate_slot_grads", s, g_scores.data_ptr(),
                 s.ids.data_ptr(), s.rows.data_ptr(), s.g_theta.data_ptr())
-    # segment i of both buffers, cut by one call each
-    return (list(zip(s.ids.view(nE + 2, B).unbind(0),
-                     s.rows.view(nE + 2, B, s.rows.shape[1]).unbind(0))), s.g_theta)
+    return (s.ids, s.rows), s.g_theta

@@ -351,6 +351,8 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
             P[t].dtype) for t in sorted({tb for _, tb, _ in model.gathers()})
             if P[t].shape[0] * n_grid <= SMALL_TABLE_ROWS}
         loss = torch.zeros((), dtype=torch.float32, device=grid.device)
+        # per table: the routed (ids, grads) of each microbatch, then any
+        # fallback rows, joined into one stream after the microbatches
         main_pairs: Dict[str, list] = {}
         ovf_pairs: Dict[str, list] = {}
         dense_grads: Dict[str, torch.Tensor] = {}
@@ -408,10 +410,8 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
             loss = loss + closs.float()
 
             # owner-directed update routing
-            for table, pairs in merged_row_updates(model.gathers(), sub,
-                                                   g_slots).items():
-                uid = torch.cat([i for i, _ in pairs]).contiguous()
-                ug = torch.cat([g for _, g in pairs])
+            for table, (uid, ug) in merged_row_updates(model.gathers(), sub,
+                                                       g_slots).items():
                 lp = P[table].shape[0]
                 rows_phys = lp * n_grid
                 if table in small_full:
@@ -446,9 +446,6 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
                 n_ovf_upd = n_ovf_upd + novf
 
         updates: Updates = {}
-        for table, pairs in main_pairs.items():
-            updates[table] = [(torch.cat([i for i, _ in pairs]),
-                               torch.cat([g for _, g in pairs]))]
         for table, g_dense in dense_grads.items():
             lp = P[table].shape[0]
             g_local = all_reduce(g_dense, grid, GRID)[
@@ -456,7 +453,7 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
             touched = g_local[:, -1] > 0
             lid = torch.where(touched, torch.arange(lp, device=grid.device),
                               lp)
-            updates[table] = [(lid, g_local[:, :-1])]
+            updates[table] = (lid, g_local[:, :-1])
         if ovf_pairs and _max_over_grid(grid, n_ovf_upd) > 0:
             fallbacks["update"] += 1
             for table, pairs in ovf_pairs.items():
@@ -466,8 +463,11 @@ def build_exchange_train_step(model: KGEModel, cfg: Config, grid: Grid,
                         gid = all_gather_ids(oid, grid, GRID)
                         gg = all_gather(og, grid, GRID)
                     lid, owned = owned_or_sentinel(gid, grid.rank * lp, lp)
-                    updates[table].append(
+                    main_pairs[table].append(
                         (lid, torch.where(owned[:, None], gg, 0.0)))
+        for table, parts in main_pairs.items():
+            ids, grads = zip(*parts)
+            updates[table] = (torch.cat(ids), torch.cat(grads))
         params, opt_state = opt.apply(P, state.opt_state, updates,
                                       state.step)
         return (TrainState(params, opt_state, state.step + 1),

@@ -193,6 +193,8 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
             P[t].dtype) for t in sorted({tb for _, tb, _ in model.gathers()})
             if P[t].shape[0] * n_grid <= SMALL_TABLE_ROWS}
         loss = torch.zeros((), dtype=torch.float32, device=grid.device)
+        # per table: the routed (ids, grads) of each microbatch, then any
+        # fallback rows, joined into one stream after the microbatches
         main_pairs: Dict[str, List] = {}
         ovf_pairs: Dict[str, List] = {}
         dense_grads: Dict[str, torch.Tensor] = {}
@@ -315,10 +317,8 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
             loss = loss + closs.float()
 
             # two-stage update routing
-            for table, pairs in merged_row_updates(model.gathers(), sub,
-                                                   g_slots).items():
-                uid = torch.cat([i for i, _ in pairs]).contiguous()
-                ug = torch.cat([g for _, g in pairs])
+            for table, (uid, ug) in merged_row_updates(model.gathers(), sub,
+                                                       g_slots).items():
                 lp = P[table].shape[0]
                 rows_phys = sent = lp * n_grid
                 if table in small_full:
@@ -394,9 +394,6 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
                 overflow["update2"] += novf2
 
         updates: Updates = {}
-        for table, pairs in main_pairs.items():
-            updates[table] = [(torch.cat([i for i, _ in pairs]),
-                               torch.cat([g for _, g in pairs]))]
         for table, g_dense in dense_grads.items():
             lp = P[table].shape[0]
             g_local = wire_sum(g_dense, grid, wire_dt)[
@@ -404,7 +401,7 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
             touched = g_local[:, -1] > 0
             lid = torch.where(touched, torch.arange(lp, device=grid.device),
                               lp)
-            updates[table] = [(lid, g_local[:, :-1])]
+            updates[table] = (lid, g_local[:, :-1])
         for table, g_hot in hot_grads.items():
             # one reduction carries every hot-row gradient; every rank
             # applies the same update to its replica
@@ -420,8 +417,11 @@ def build_hier_train_step(model: KGEModel, cfg: Config, grid: Grid,
                         gid = all_gather_ids(oid, grid, GRID)
                         gg = all_gather(og, grid, GRID)
                     lid, owned = owned_or_sentinel(gid, n_idx * lp, lp)
-                    updates[table].append(
+                    main_pairs[table].append(
                         (lid, torch.where(owned[:, None], gg, 0.0)))
+        for table, parts in main_pairs.items():
+            ids, grads = zip(*parts)
+            updates[table] = (torch.cat(ids), torch.cat(grads))
         params, opt_state = opt.apply(P, state.opt_state, updates,
                                       state.step)
         for table in hot_grads:

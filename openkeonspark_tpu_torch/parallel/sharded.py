@@ -15,9 +15,10 @@ process per grid cell instead of one ``shard_map`` program:
   assembles the full rows (``:109-118``). Streams are gathered as
   ``train/step.py::gather_slots_structured`` gathers them, so a (1, 1)
   grid runs the single-device step's arithmetic bit for bit.
-- **Update**: the merged (ids, row grads) streams are ``all_gather``-ed
-  over ``'data'`` (``:123-141``; their lengths are fixed by the batch
-  shape, equal on every rank), the ids a rank does not own go to the
+- **Update**: each table's merged (ids, row grads) stream is
+  ``all_gather``-ed over ``'data'`` (``:123-141``; its length is fixed by
+  the batch shape, equal on every rank) and put in the union batch's
+  order (:func:`union_order`), the ids a rank does not own go to the
   optimizer's discard sentinel, and the optimizer applies them to the
   local rows. Gradients sum over data rows. The loss is summed over
   ``'data'`` (``:144``).
@@ -77,6 +78,18 @@ def owned_or_sentinel(ids: torch.Tensor, first: int, lp: int
     return torch.where(owned, lid, lp), owned
 
 
+def union_order(x: torch.Tensor, n_rows: int, b: int) -> torch.Tensor:
+    """A stream gathered over ``n_rows`` data rows (rank-major, ``[n_rows·S·b,
+    …]``) in the union batch's order: ``merged_row_updates``' streams are
+    ``S`` segments of ``b`` rows, so segment k of every rank comes before
+    segment k + 1 of any, and each row sums as the single-device step on
+    the union batch sums it (lazy Adam's early steps are near ``±lr``
+    whatever a gradient's size, so a row whose terms cancel would move a
+    whole step on a rounding difference)."""
+    return x.reshape(n_rows, -1, b, *x.shape[1:]).transpose(0, 1).reshape(
+        x.shape)
+
+
 def build_sharded_train_step(model: KGEModel, cfg: Config, grid: Grid,
                              batch_size: int, n_train: int,
                              opt=None) -> Callable:
@@ -104,15 +117,14 @@ def build_sharded_train_step(model: KGEModel, cfg: Config, grid: Grid,
         loss, g_slots = slot_loss_and_grads(model, cfg, slots, B_local,
                                             n_neg)
         updates: Updates = {}
-        for table, pairs in merged_row_updates(model.gathers(), batch,
-                                               g_slots).items():
+        for table, (uid, ug) in merged_row_updates(model.gathers(), batch,
+                                                   g_slots).items():
             lp = state.params[table].shape[0]
-            for uid, ug in pairs:
-                gid = all_gather_ids(uid, grid, DATA)
-                gg = all_gather(ug, grid, DATA)
-                lid, owned = owned_or_sentinel(gid, m_idx * lp, lp)
-                updates.setdefault(table, []).append(
-                    (lid, torch.where(owned[:, None], gg, 0.0)))
+            b = batch.h.shape[0]
+            gid = union_order(all_gather_ids(uid, grid, DATA), grid.data, b)
+            gg = union_order(all_gather(ug, grid, DATA), grid.data, b)
+            lid, owned = owned_or_sentinel(gid, m_idx * lp, lp)
+            updates[table] = (lid, torch.where(owned[:, None], gg, 0.0))
         params, opt_state = opt.apply(state.params, state.opt_state,
                                       updates, state.step)
         return (TrainState(params, opt_state, state.step + 1),

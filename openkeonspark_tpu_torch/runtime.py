@@ -27,7 +27,7 @@ PORTED_MODELS = ("transe", "transh", "transr", "transd", "distmult",
 
 
 class NotPortedError(NotImplementedError):
-    """An option the port does not cover yet (see ROADMAP.md queue A)."""
+    """An option the port refuses; its message names the reason."""
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
@@ -49,8 +49,9 @@ def check_model_ported(name: str) -> None:
     if name not in PORTED_MODELS:
         raise NotPortedError(
             f"model {name!r} is not one of the models ported to "
-            f"openkeonspark_tpu_torch ({', '.join(PORTED_MODELS)}); "
-            "see ROADMAP.md queue A")
+            f"openkeonspark_tpu_torch ({', '.join(PORTED_MODELS)}), the "
+            "models of the JAX package; configurations still to run are "
+            "ROADMAP.md queue W")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -58,8 +59,9 @@ def torch_dtype(name: str) -> torch.dtype:
     the port takes float32 and bfloat16."""
     if name not in DTYPES:
         raise NotPortedError(
-            f"dtype {name!r} is not ported (the port takes "
-            f"{', '.join(DTYPES)}); see ROADMAP.md queue A")
+            f"dtype {name!r} is not ported (the port's tables and kernels "
+            f"take {', '.join(DTYPES)}); configurations still to run are "
+            "ROADMAP.md queue W")
     return DTYPES[name]
 
 

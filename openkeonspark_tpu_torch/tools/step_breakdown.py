@@ -86,12 +86,9 @@ def stage_fns(model, cfg, B):
     def st_grad(params, b):
         loss, updates = loss_and_row_grads(model, cfg, params, b)
         acc = loss.float()
-        for pairs in updates.values():
-            if isinstance(pairs, DenseUpdate):
-                acc = acc + pairs.grad.sum(dtype=torch.float32)
-                continue
-            for _, g in pairs:
-                acc = acc + g.sum(dtype=torch.float32)
+        for u in updates.values():
+            g = u.grad if isinstance(u, DenseUpdate) else u[1]
+            acc = acc + g.sum(dtype=torch.float32)
         return acc
 
     return dict(zip(STAGES, (st_sample, st_gather, st_score, st_grad)))

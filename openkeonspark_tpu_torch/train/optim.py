@@ -1,9 +1,9 @@
 """Sparse optimizers: a step touches only the sampled rows.
 
 Counterpart of ``openkeonspark_tpu/train/optim.py:50-313``. An update is,
-per table, either a list of ``(ids, row_grads)`` pairs (duplicate ids sum,
-ids ≥ rows are dropped) or a :class:`DenseUpdate` (the grouped TransR
-step's ``transfer_matrix`` gradient).
+per table, either one ``(ids [N], row_grads [N, dim])`` stream (duplicate
+ids sum, ids ≥ rows are dropped) or a :class:`DenseUpdate` (the grouped
+TransR step's ``transfer_matrix`` gradient).
 
 - **SGD** (the reference's default): ``table[ids] -= α·g``, or one
   streaming add of a dense gradient.
@@ -46,7 +46,7 @@ starts from, which its scanned loop then refuses as a change of type)."""
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -74,9 +74,8 @@ class DenseUpdate(NamedTuple):
     touched: torch.Tensor   # [rows] bool
 
 
-# table name -> [(ids [N], row_grads [N, dim]), …] or a DenseUpdate
-Updates = Dict[str, Union[List[Tuple[torch.Tensor, torch.Tensor]],
-                          DenseUpdate]]
+# table name -> (ids [N], row_grads [N, dim]) or a DenseUpdate
+Updates = Dict[str, Union[Tuple[torch.Tensor, torch.Tensor], DenseUpdate]]
 
 
 def use_wide_kernel(table: torch.Tensor) -> bool:
@@ -124,14 +123,6 @@ def add_rows_summed(table: torch.Tensor, ids: torch.Tensor,
     table.add_(total.to(table.dtype))
 
 
-def _merged(pairs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One id stream and one gradient stream per table."""
-    if len(pairs) == 1:
-        return pairs[0]
-    return (torch.cat([i for i, _ in pairs]),
-            torch.cat([g for _, g in pairs]))
-
-
 def aggregate_duplicates(ids: torch.Tensor, grads: torch.Tensor,
                          sentinel: int, plain: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -161,14 +152,13 @@ class SparseSGD:
               plain: bool = False):
         """Update ``params`` in place; returns (params, state). ``plain``
         sends wide rows through B5's plain version on any device."""
-        for table, pairs in updates.items():
+        for table, u in updates.items():
             t = params[table]
-            if isinstance(pairs, DenseUpdate):
+            if isinstance(u, DenseUpdate):
                 # streaming dense add: untouched rows carry exact zeros
-                t.add_(pairs.grad, alpha=-self.lr)
+                t.add_(u.grad, alpha=-self.lr)
                 continue
-            # one scatter per table, not one per id stream
-            ids, g = _merged(pairs)
+            ids, g = u
             delta = (-self.lr * g).to(t.dtype)
             if t.numel() <= DENSE_MAX_ELEMS and not use_wide_kernel(t):
                 add_rows_summed(t, ids, delta)
@@ -223,14 +213,14 @@ class _LazyRowOptimizer:
               plain: bool = False):
         """Update ``params`` and ``state`` in place; returns (params,
         state). ``plain`` sends wide rows through B5's plain version."""
-        for table, pairs in updates.items():
+        for table, u in updates.items():
             p = params[table]
             slots = {s: state[s][table] for s in self.state_slots}
-            if isinstance(pairs, DenseUpdate):
-                self._apply_masked(p, slots, pairs.grad,
-                                   pairs.touched[:, None], step)
+            if isinstance(u, DenseUpdate):
+                self._apply_masked(p, slots, u.grad, u.touched[:, None],
+                                   step)
                 continue
-            ids, g = _merged(pairs)
+            ids, g = u
             rows = p.shape[0]
             if p.numel() <= self.DENSE_MOMENT_MAX_ELEMS:
                 G = torch.zeros_like(p, dtype=torch.float32)

@@ -137,17 +137,15 @@ def slot_loss_and_grads(model: KGEModel, cfg: Config, slots: Dict,
 
 def merged_row_updates(gathers: Tuple[Gather, ...], batch: SampledBatch,
                        g_slots: Dict) -> Updates:
-    """(table → [(ids, row grads)]) with structurally duplicate id streams
-    merged. An entity-corrupted negative keeps its uncorrupted side equal
-    to the positive's id, and relation negatives reuse both entities, so
-    the entity update shrinks to ``B·(2 + negE)`` rows
+    """(table → one (ids, row grads) stream) with structurally duplicate id
+    streams merged. An entity-corrupted negative keeps its uncorrupted side
+    equal to the positive's id, and relation negatives reuse both
+    entities, so the entity update shrinks to ``B·(2 + negE)`` rows
     (``ops/merge.py::merge_entity_rows``: one kernel a table on the card)
-    and the relation update to ``B·(1 + negR)``."""
+    and the relation update to ``B·(1 + negR)``: the relation negatives'
+    segments, then ``r`` with its positives' and entity negatives' sum."""
     B = batch.h.shape[0]
     nE, nR = _n_neg(batch)
-
-    def seg(g, i):  # negative segment i of a slot's gradient stream
-        return g[B * (1 + i):B * (2 + i)]
 
     by_table: Dict[str, Dict[str, torch.Tensor]] = {}
     for slot, table, anchor in gathers:
@@ -155,21 +153,20 @@ def merged_row_updates(gathers: Tuple[Gather, ...], batch: SampledBatch,
 
     updates: Updates = {}
     for table, a in by_table.items():
-        out = updates.setdefault(table, [])
-        if "r" in a:
-            g = a["r"]
-            if g.shape[0] == B:       # untiled [B, d] slot: its gradient
-                out.append((batch.r, g))   # already sums every segment
-                continue
-            base = g[:B]
-            for k in range(nE):
-                base = base + seg(g, k)        # entity negatives reuse r
-            for k in range(nR):
-                out.append((batch.neg_rel[:, k], seg(g, nE + k)))
-            out.append((batch.r, base))
-        else:  # entity table: one h-anchored and one t-anchored slot
-            out += merge_entity_rows(batch.h, batch.t, batch.neg_h,
-                                     batch.neg_t, a["h"], a["t"], nR)
+        if "r" not in a:  # entity table: one h- and one t-anchored slot
+            updates[table] = merge_entity_rows(batch.h, batch.t, batch.neg_h,
+                                               batch.neg_t, a["h"], a["t"],
+                                               nR)
+            continue
+        g = a["r"]
+        if g.shape[0] == B:       # untiled [B, d] slot: its gradient
+            updates[table] = (batch.r, g)   # already sums every segment
+            continue
+        base = g[:B]
+        for k in range(nE):
+            base = base + g[B * (1 + k):B * (2 + k)]  # negatives reuse r
+        updates[table] = (torch.cat([batch.neg_rel.T.reshape(-1), batch.r]),
+                          torch.cat([g[B * (1 + nE):], base]))
     return updates
 
 
@@ -269,7 +266,7 @@ def loss_and_row_grads_rotate(cfg: Config, params: Params,
     positives and their entity negatives from their ids, the margin loss
     runs under autograd on those scores alone, and the backward kernel
     turns the scores' gradient into the entity table's merged update
-    pairs (``merge_entity_rows``' layout) and the phases' ``[B, d]``
+    stream (``merge_entity_rows``' layout) and the phases' ``[B, d]``
     gradient (``ops/rotate_train.py``; its plain versions on the CPU)."""
     with span("okst.train.gather"):
         slots = rotate_train.prepare(
@@ -283,16 +280,16 @@ def loss_and_row_grads_rotate(cfg: Config, params: Params,
                                            cfg.margin, cfg.loss_mode)
         with span("okst.train.grad"):
             (g_scores,) = torch.autograd.grad(loss, [scores])
-            pairs, g_theta = rotate_train.rotate_slot_grads(slots, g_scores)
+            ent, g_theta = rotate_train.rotate_slot_grads(slots, g_scores)
     with span("okst.train.update"):
-        updates = {"ent_embeddings": pairs,
-                   "rel_embeddings": [(batch.r, g_theta)]}
+        updates = {"ent_embeddings": ent,
+                   "rel_embeddings": (batch.r, g_theta)}
     return loss.detach(), updates
 
 
 def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
                        batch: SampledBatch):
-    """Scalar loss and the merged (table → [(ids, row grads)]) updates;
+    """Scalar loss and the merged (table → (ids, row grads)) updates;
     gradients are taken with respect to the gathered rows only."""
     if use_grouped_transr(cfg):
         return loss_and_row_grads_transr_grouped(model, cfg, params, batch)
@@ -317,8 +314,8 @@ def check_train_supported(cfg: Config) -> None:
         raise NotPortedError(
             f"TransR's grouped step with dtype {cfg.dtype!r} tables: the "
             "JAX package's grouped step raises on them too; train with "
-            "--negative_rel > 0 or grouped_transr=False (the generic step), "
-            "see ROADMAP.md queue A")
+            "--negative_rel > 0 or grouped_transr=False (the generic step); "
+            "configurations still to run are ROADMAP.md queue W")
 
 
 def build_train_step(model: KGEModel, cfg: Config, batch_size: int

@@ -164,10 +164,10 @@ def _parent(e):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_loss_and_optim_spans_open_once_a_step(kg, name, monkeypatch):
-    """Every stage span opens once a step (the update twice: the pairs,
-    then the optimizer) inside the step's span, on RotatE's slot route as
-    on the generic step; the loss inside the score, the optimizer inside
-    the second update."""
+    """Every stage span opens once a step (the update twice: the update
+    streams, then the optimizer) inside the step's span, on RotatE's slot
+    route as on the generic step; the loss inside the score, the optimizer
+    inside the second update."""
     ds, index = kg
     routes = []
     real = tstep.loss_and_row_grads_rotate

@@ -162,8 +162,8 @@ def test_sgd_adds_a_small_tables_summed_deltas_once(rows, monkeypatch):
         monkeypatch.setattr(optim, "DENSE_MAX_ELEMS", bound)
         t = torch.ones(rows, 2)
         optim.SparseSGD(Config(alpha=1.0)).apply(
-            {"t": t}, {}, {"t": [(torch.tensor([3, 3, rows]),
-                                  torch.full((3, 2), -4e-8))]}, 0)
+            {"t": t}, {}, {"t": (torch.tensor([3, 3, rows]),
+                                 torch.full((3, 2), -4e-8))}, 0)
         assert torch.equal(t[3], want.expand(2))
         t[3] = 1.0
         assert torch.equal(t, torch.ones(rows, 2))
@@ -171,7 +171,7 @@ def test_sgd_adds_a_small_tables_summed_deltas_once(rows, monkeypatch):
 
 def test_grouped_transr_adam_matches_generic_route():
     """Adam on the grouped TransR route (``transfer_matrix`` as a
-    ``DenseUpdate``) and on the generic route (row pairs through the
+    ``DenseUpdate``) and on the generic route (a row stream through the
     dense-G path) from the same batch: the same tables and moments."""
     cfg = _cfg("transr", "adam", negative_ent=2, negative_rel=0)
     ds = random_kg(**KG)

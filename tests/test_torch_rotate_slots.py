@@ -97,7 +97,8 @@ def test_rotate_route_equals_the_generic_step_bit_for_bit(kg, loss_mode,
                                                           negative_ent):
     """The route's plain version (gathers, ``models/rotate.py`` under
     autograd with the scores as a leaf, ``merge_entity_rows_ref``) gives
-    the generic step's loss, pairs and phase gradient bit for bit."""
+    the generic step's loss, update streams and phase gradient bit for
+    bit."""
     cfg, mdl, params, batch = _setup(kg, negative_ent=negative_ent,
                                      loss_mode=loss_mode)
     rotate_train.reset_launch_counts()
@@ -110,13 +111,13 @@ def test_rotate_route_equals_the_generic_step_bit_for_bit(kg, loss_mode,
     else:
         assert torch.equal(_bits(loss), _bits(want_loss))
     assert list(upd) == list(want) == ["ent_embeddings", "rel_embeddings"]
-    assert len(upd["ent_embeddings"]) == negative_ent + 2
-    assert len(upd["rel_embeddings"]) == 1
-    for table in want:
-        for (ids, rows), (wids, wrows) in zip(upd[table], want[table]):
-            assert torch.equal(ids, wids), table
-            assert rows.shape == wrows.shape, table
-            assert torch.equal(_bits(rows), _bits(wrows)), table
+    assert upd["ent_embeddings"][0].shape == ((negative_ent + 2) * B,)
+    assert upd["rel_embeddings"][0].shape == (B,)
+    for table, (wids, wrows) in want.items():
+        ids, rows = upd[table]
+        assert torch.equal(ids, wids), table
+        assert rows.shape == wrows.shape, table
+        assert torch.equal(_bits(rows), _bits(wrows)), table
 
 
 def test_rotate_route_steps_like_the_generic_step(kg, monkeypatch):

@@ -19,6 +19,8 @@ from openkeonspark_tpu.train import step as jstep
 from openkeonspark_tpu.train.loss import margin_ranking_loss as jax_loss
 from openkeonspark_tpu.train.optim import make_optimizer as jax_opt
 from openkeonspark_tpu_torch.ckpt import params_from_numpy
+from openkeonspark_tpu_torch.data import build_kg_index as port_kg_index
+from openkeonspark_tpu_torch.data import random_kg as port_random_kg
 from openkeonspark_tpu_torch.models import get_model
 from openkeonspark_tpu_torch.sampling import DeviceSampler, SampledBatch
 from openkeonspark_tpu_torch.train import step as tstep
@@ -69,16 +71,14 @@ def _setup(model, cfg, ds_kw, key, B, sample_key):
 
 
 def _dense(updates, params):
-    """Per-table dense gradients from a port update list."""
+    """Per-table dense gradients from the port's updates."""
     out = {}
     for k, u in updates.items():
         if isinstance(u, DenseUpdate):
             out[k] = u.grad.clone()
             continue
-        d = torch.zeros_like(params[k])
-        for ids, g in u:
-            d.index_add_(0, ids, g)
-        out[k] = d
+        ids, g = u
+        out[k] = torch.zeros_like(params[k]).index_add_(0, ids, g)
     return out
 
 
@@ -273,7 +273,8 @@ def _bf16_round(x):
 
 def _merge_oracle(b, g, nE, nR, rnd):
     """NumPy oracle of ``merged_row_updates`` for TransE's two tables:
-    {table: [(ids, rows)]}, every add in fp32, then ``rnd``."""
+    {table: (ids, rows)}, its pairs joined in order, every add in fp32,
+    then ``rnd``."""
     h, t, r = b["h"], b["t"], b["r"]
     B = h.shape[0]
 
@@ -300,7 +301,9 @@ def _merge_oracle(b, g, nE, nR, rnd):
             base = rnd(base + seg(gr, k))
         rel = [(b["neg_rel"][:, k], seg(gr, nE + k)) for k in range(nR)]
         rel.append((r, base))
-    return {"ent_embeddings": ent, "rel_embeddings": rel}
+    return {k: tuple(np.concatenate(x) for x in zip(*pairs))
+            for k, pairs in (("ent_embeddings", ent),
+                             ("rel_embeddings", rel))}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -309,7 +312,7 @@ def _merge_oracle(b, g, nE, nR, rnd):
 def test_merged_row_updates_match_numpy_oracle(nE, nR, dtype):
     """``merged_row_updates`` on the CPU (the entity tables through
     ``ops/merge.py``'s plain version, no launch) against a NumPy oracle:
-    the same pairs in the same order, the same ids, rows bit for bit. Its
+    one stream a table, the same ids in the same order, rows bit for bit. Its
     batch corrupts heads, tails and neither (``neg_h == h`` and ``neg_t ==
     t``), takes its ids as strided columns, and its positive rows hold
     −0.0, which an add of +0.0 turns to +0.0."""
@@ -346,21 +349,20 @@ def test_merged_row_updates_match_numpy_oracle(nE, nR, dtype):
          if getattr(batch, k) is not None},
         {k: v.float().numpy() for k, v in g.items()}, nE, nR, rnd)
     assert list(got) == list(want)
-    assert len(got["ent_embeddings"]) == nE + 2
-    for table in want:
-        assert len(got[table]) == len(want[table]), table
-        for (ids, rows), (wids, wrows) in zip(got[table], want[table]):
-            assert ids.dtype == torch.int64 and rows.dtype == dtype
-            assert rows.shape == (B, d)
-            np.testing.assert_array_equal(ids.numpy(), wids, err_msg=table)
-            np.testing.assert_array_equal(
-                rows.float().numpy().view(np.uint32), wrows.view(np.uint32),
-                err_msg=table)
-    pairs = merge.merge_entity_rows(batch.h, batch.t, batch.neg_h,
-                                    batch.neg_t, g["h_e"], g["t_e"], nR)
+    n_rows = {"ent_embeddings": (nE + 2) * B, "rel_embeddings": (1 + nR) * B}
+    for table, (wids, wrows) in want.items():
+        ids, rows, n = *got[table], n_rows[table]
+        assert ids.dtype == torch.int64 and rows.dtype == dtype
+        assert ids.shape == (n,) and rows.shape == (n, d)
+        np.testing.assert_array_equal(ids.numpy(), wids, err_msg=table)
+        np.testing.assert_array_equal(
+            rows.float().numpy().view(np.uint32), wrows.view(np.uint32),
+            err_msg=table)
+    ids, rows = merge.merge_entity_rows(batch.h, batch.t, batch.neg_h,
+                                        batch.neg_t, g["h_e"], g["t_e"], nR)
     assert merge.LAUNCHES == before
-    for (i, r), (wi, wr) in zip(pairs, got["ent_embeddings"]):
-        assert torch.equal(i, wi) and torch.equal(r, wr)
+    wids, wrows = got["ent_embeddings"]
+    assert torch.equal(ids, wids) and torch.equal(rows, wrows)
 
 
 def test_grouped_transr_touched_mask_marks_the_batch_relations():
@@ -372,3 +374,40 @@ def test_grouped_transr_touched_mask_marks_the_batch_relations():
     rows = tparams["transfer_matrix"].shape[0]
     want = torch.bincount(tbatch.r, minlength=rows) > 0
     assert torch.equal(upd["transfer_matrix"].touched, want)
+
+
+@pytest.mark.parametrize("model,route", [("transe", "generic"),
+                                         ("transr", "grouped_transr"),
+                                         ("rotate", "rotate_slots")])
+def test_each_route_gives_one_stream_a_sparse_table(model, route):
+    """Every training route hands the optimizer one update per table:
+    a ``DenseUpdate`` (the grouped step's ``transfer_matrix``) or exactly
+    one ``(ids int64 [N], rows [N, d])`` stream, ``d`` the table's width;
+    the entity table's is the merge's ``(negE + 2)·B`` rows."""
+    B, n_neg = 16, 3
+    ds = port_random_kg(n_ent=70, n_rel=6, n_triples=600, n_valid=10,
+                        n_test=10, seed=4)
+    cfg = port_config(Config(model=model, hidden_size=6, ent_size=6,
+                             rel_size=5, margin=2.0, negative_ent=n_neg,
+                             batch_size=B))
+    mdl = get_model(model)
+    state = tstep.init_state(mdl, cfg, ds.n_ent, ds.n_rel,
+                             torch.Generator().manual_seed(0), CPU)
+    sampler = DeviceSampler.build(ds, port_kg_index(ds, for_eval=False), CPU)
+    batch = sampler.sample(B, n_neg, 0, True,
+                           gen=torch.Generator().manual_seed(1))
+    assert tstep.use_grouped_transr(cfg) == (route == "grouped_transr")
+    assert tstep.use_rotate_slots(mdl, state.params, batch) == (
+        route == "rotate_slots")
+    _, upd = tstep.loss_and_row_grads(mdl, cfg, state.params, batch)
+    assert sorted(upd) == sorted(state.params)
+    dense = {k for k, u in upd.items() if isinstance(u, DenseUpdate)}
+    assert dense == ({"transfer_matrix"} if route == "grouped_transr"
+                     else set())
+    for table in set(upd) - dense:
+        u = upd[table]
+        assert type(u) is tuple and len(u) == 2, table
+        ids, rows = u
+        assert ids.dtype == torch.int64 and ids.dim() == 1, table
+        assert rows.shape == (ids.shape[0], state.params[table].shape[1])
+    assert upd["ent_embeddings"][0].shape == ((n_neg + 2) * B,)
