@@ -5,8 +5,9 @@ optionally evaluate.
 Same flags and printout as ``openkeonspark_tpu.cli.train``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 Models: transe, transh, transd, rotate, distmult and complex (generic
-step) and transr (the relation-grouped step with entity negatives only,
-the generic step with ``--negative_rel > 0``; CUDA kernels on the card).
+step) and transr (the relation-grouped step; with ``--negative_rel > 0``
+its relation negatives are a second relation-sorted stream, and bf16
+tables take the generic step; CUDA kernels on the card).
 Optimizers: sgd and the lazy adam, adagrad and adadelta. ``--trace_dir``
 writes a ``torch.profiler`` Chrome trace of the second epoch
 (``train/loop.py``). ``--type_constrain`` adds the type-constrained table

@@ -6,7 +6,9 @@ corrupted entity is drawn uniformly from the entities that do *not* form a
 train triple with the kept side, by the complement "offset trick": draw
 ``x ~ U[0, n − cnt)`` and return ``x + |{i : adj[i] ≤ x}|`` over the
 group's strictly increasing ``adj[i] = g[i] − i`` window. The count is a
-per-lane binary search over plain int tensors on the device.
+per-lane binary search over plain int tensors on the device, or, where
+the lanes and the widest window are few (the relation draw), one
+comparison of every window slot.
 
 The arithmetic is the JAX package's, bit for bit, so both samplers give
 the same batch from the same u32 bits (``sample(..., bits=...)``):
@@ -20,6 +22,7 @@ are not ported: the search runs ``iters`` plain rounds."""
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -38,17 +41,31 @@ def _ceil_log2(n: int) -> int:
     return max(1, (n - 1).bit_length())
 
 
+# lanes × window slots up to which batched_upper_bound compares every slot
+# of each window at once (eight launches) instead of searching (twelve
+# launches a round); a slot takes a bool and at most one int64 probe
+WINDOW_COUNT_MAX_ELEMS = 1 << 22
+
+
 def batched_upper_bound(arr: torch.Tensor, off: torch.Tensor,
                         cnt: torch.Tensor, x: torch.Tensor,
                         iters: int) -> torch.Tensor:
     """Per lane: ``|{i in [0, cnt): arr[off + i] <= x}|`` for sorted
     windows; ``iters`` ≥ ceil(log2(max cnt + 1)) rounds of binary search
-    (every window must lie inside ``arr`` where ``cnt > 0``)."""
+    (every window must lie inside ``arr`` where ``cnt > 0``). Where the
+    lanes times ``2**iters − 1`` slots (the widest window) are at most
+    ``WINDOW_COUNT_MAX_ELEMS``, every slot is compared at once: the same
+    count in a few launches (the relation draw's windows are narrow)."""
     shape = torch.broadcast_shapes(off.shape, cnt.shape, x.shape)
+    top = max(arr.numel() - 1, 0)
+    width = (1 << iters) - 1
+    if width * math.prod(shape) <= WINDOW_COUNT_MAX_ELEMS:
+        i = torch.arange(width, device=x.device)
+        probe = arr[torch.clamp(off[..., None] + i, max=top)]
+        return ((i < cnt[..., None]) & (probe <= x[..., None])).sum(-1)
     lo = torch.zeros(shape, dtype=torch.int64, device=x.device)
     hi = cnt.expand(shape).to(torch.int64)
     last = torch.clamp_min(cnt.to(torch.int64) - 1, 0)
-    top = max(arr.numel() - 1, 0)
     for _ in range(iters):
         mid = (lo + hi) >> 1
         probe = arr[torch.clamp(off + torch.minimum(mid, last), max=top)]

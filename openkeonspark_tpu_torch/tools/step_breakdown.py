@@ -13,7 +13,8 @@ the host's launches. The full step's device time comes from
 ``torch.profiler`` (one group of S steps, profiled after every timing).
 
 For TransR the full step is the relation-grouped step (kernels B4 fwd and
-bwd); the grad prefix takes it too (``loss_and_row_grads``, as in the JAX
+bwd; with relation negatives and fp32 tables a second pair for their
+stream); the grad prefix takes it too (``loss_and_row_grads``, as in the JAX
 package), while the gather and score prefixes decompose the generic
 step's per-row matrices. RotatE with fp32 tables likewise takes its slot
 route (``ops/rotate_train.py``, which gathers no slot) in the grad prefix
@@ -45,7 +46,8 @@ from openkeonspark_tpu_torch.train.step import (build_group_runner,
                                                 gather_slots_structured,
                                                 init_state,
                                                 loss_and_row_grads,
-                                                use_grouped_transr)
+                                                use_grouped_transr,
+                                                use_grouped_transr_relneg)
 
 STAGES = ("sampling", "gather", "score", "grad")
 
@@ -212,7 +214,8 @@ def main(argv=None):
                                    for k, v in attributed.items()},
         "triples_per_sec": round(B / results["full"], 1),
     }
-    if use_grouped_transr(cfg):
+    if use_grouped_transr(cfg) or use_grouped_transr_relneg(cfg,
+                                                            state.params):
         out["note"] = ("full step and grad prefix take the relation-"
                        "grouped step; the gather and score prefixes "
                        "decompose the GENERIC step, so their attribution "

@@ -13,15 +13,21 @@ TransR with entity negatives only takes the relation-grouped route
 (:func:`use_grouped_transr`): the batch is sorted by relation, every slot
 row is projected through the grouped kernels of ``ops/grouped.py`` (plain
 versions on the CPU) and the ``transfer_matrix`` gradient comes out dense.
+With relation negatives and fp32 tables it takes that route too
+(:func:`use_grouped_transr_relneg`, a port-only route: the JAX package's
+step is generic there), the relation negatives' rows a second
+relation-sorted stream through the same kernels.
 RotatE with fp32 tables and entity negatives only takes its slot route
 (:func:`use_rotate_slots`): ``ops/rotate_train.py``'s kernel pair scores
 the slots from their ids and writes the merged update rows, with no slot
 gathered (the plain versions on the CPU).
 The JAX package's TPU-only gates (``d_ent % 8`` and the backend test) are
-dropped. TransR with relation negatives, or with ``grouped_transr=False``,
-takes the generic step: it gathers one ``[d_e·d_r]`` matrix per slot row,
-and its ``transfer_matrix`` rows are updated through the wide-row scatter
-kernel B5 (``optim.scatter_add_rows``).
+dropped. TransR with ``grouped_transr=False``, or with relation negatives
+and bf16 tables, takes the generic step: it gathers one ``[d_e·d_r]``
+matrix per slot row, and its ``transfer_matrix`` rows are updated through
+the wide-row scatter kernel B5 (``optim.scatter_add_rows``). The grid
+steps (``parallel/``) score their slots through
+:func:`slot_loss_and_grads`, the generic step, for every model.
 
 Each stage of a step (sampling, gather, score with the loss inside it,
 grad, update with the optimizer inside it), the step and its group open
@@ -177,9 +183,21 @@ def use_grouped_transr(cfg: Config) -> bool:
             and cfg.negative_rel == 0)
 
 
-_ENT_REL_GATHERS = (("h_e", "ent_embeddings", "h"),
-                    ("t_e", "ent_embeddings", "t"),
-                    ("r_e", "rel_embeddings", "r"))
+def use_grouped_transr_relneg(cfg: Config, params: Params) -> bool:
+    """TransR with relation negatives and fp32 tables takes the
+    relation-grouped route too, its relation negatives projected as a
+    second relation-sorted stream. bf16 tables keep the generic step: the
+    grouped kernels take fp32 rows, and eager bf16 ops round where a
+    kernel would not."""
+    return (cfg.model == "transr" and cfg.grouped_transr
+            and cfg.negative_rel > 0
+            and all(params[k].dtype == torch.float32
+                    for k in ("ent_embeddings", "rel_embeddings",
+                              "transfer_matrix")))
+
+
+_ENT_GATHERS = (("h_e", "ent_embeddings", "h"),
+                ("t_e", "ent_embeddings", "t"))
 
 
 def loss_and_row_grads_transr_grouped(model: KGEModel, cfg: Config,
@@ -190,37 +208,53 @@ def loss_and_row_grads_transr_grouped(model: KGEModel, cfg: Config,
     (each M_ρ read once per run) and take the ``transfer_matrix`` gradient
     dense. The score math is ``models/transr.py``'s. ``plain=True`` runs
     the grouped projection's plain versions on any device (the reference
-    the kernels are held to)."""
+    the kernels are held to).
+
+    Relation negatives reuse their positive's h and t under another
+    relation, so their rows cannot share the positives' runs: they form a
+    second stream, sorted stably by the negative relation, of one row
+    ``h − t`` a slot (the projection is linear), projected by a second call
+    on the same ``M`` (autograd sums the two dense gradients). Their scores
+    join the generic layout ``[1 + nE + nR, B]`` in the batch's own column
+    order, so the loss is reduced as the generic step reduces it, and
+    their h, t and relation gradients join the generic update streams."""
     B = batch.h.shape[0]
     nE, nR = _n_neg(batch)
-    if nR:
-        raise ValueError("the grouped TransR step takes entity negatives "
-                         "only")
     S = 1 + nE
     de, dr = cfg.d_ent, cfg.d_rel
 
     with span("okst.train.gather"):
         order = torch.sort(batch.r, stable=True).indices
-        bs = SampledBatch(
-            h=batch.h[order], t=batch.t[order], r=batch.r[order],
-            neg_h=None if batch.neg_h is None else batch.neg_h[order],
-            neg_t=None if batch.neg_t is None else batch.neg_t[order])
+        bs = batch.map(lambda x: x[order])
         h_ids = [bs.h] + [bs.neg_h[:, k] for k in range(nE)]
         t_ids = [bs.t] + [bs.neg_t[:, k] for k in range(nE)]
         E = params["ent_embeddings"]
+        R = params["rel_embeddings"]
         tm = params["transfer_matrix"]
         rows = tm.shape[0]
         leaves = {
             "h_e": E[torch.cat(h_ids)],                      # [S·B, de]
             "t_e": E[torch.cat(t_ids)],
-            "r_e": params["rel_embeddings"][bs.r],           # [B, dr]
+            "r_e": R[bs.r],                                  # [B, dr]
         }
+        if nR:
+            # segment k of the relation negatives at rows k·B + b (the
+            # generic layout over bs), then sorted by relation
+            rel_neg = bs.neg_rel.T.reshape(-1)               # [nR·B]
+            rel_sorted, o2 = torch.sort(rel_neg, stable=True)
+            pair = torch.stack([bs.h, bs.t], 1).expand(nR, B, 2)
+            pair = E[pair.reshape(nR * B, 2)[o2]]            # [nR·B, 2, de]
+            # h·M − t·M = (h − t)·M: one projected row a slot
+            leaves["d_neg"] = pair[:, 0] - pair[:, 1]        # [nR·B, de]
+            leaves["r_neg"] = R[rel_sorted]                  # [nR·B, dr]
         leaves = {k: v.requires_grad_() for k, v in leaves.items()}
         m3 = tm.detach().view(rows, de, dr).requires_grad_()  # no copy
         # b-major row stream: column b's 2S slot rows are consecutive, so
         # the sorted relation order carries over to the rows
         rel_rows = bs.r.repeat_interleave(2 * S)
         rel_off = run_offsets(rel_rows, rows)
+        if nR:
+            neg_off = run_offsets(rel_sorted, rows)
 
     with torch.enable_grad():
         with span("okst.train.score"):
@@ -231,21 +265,45 @@ def loss_and_row_grads_transr_grouped(model: KGEModel, cfg: Config,
             y = y.view(B, 2 * S, dr).transpose(0, 1)         # [2S, B, dr]
             res = y[:S] + leaves["r_e"][None] - y[S:]
             scores = pnorm(res, cfg.p_norm)                  # [S, B]
+            if nR:
+                y_neg = grouped_project(m3, leaves["d_neg"], rel_sorted,
+                                        neg_off, plain=plain)
+                s_neg = pnorm(y_neg + leaves["r_neg"], cfg.p_norm)
+                s_neg = s_neg.new_empty(nR * B).index_copy_(0, o2, s_neg)
+                scores = torch.cat([scores, s_neg.view(nR, B)])
+                # bs's columns back to the batch's: the generic step's
+                # reduction order
+                scores = scores.new_empty(S + nR, B).index_copy_(1, order,
+                                                                 scores)
             with span("okst.train.loss"):
                 loss = margin_ranking_loss(scores[0], scores[1:].T,
                                            cfg.margin, cfg.loss_mode)
         with span("okst.train.grad"):
-            grads = torch.autograd.grad(loss, [*leaves.values(), m3])
+            grads = dict(zip([*leaves, "m"], torch.autograd.grad(
+                loss, [*leaves.values(), m3])))
 
     with span("okst.train.update"):
-        updates = merged_row_updates(_ENT_REL_GATHERS, bs,
-                                     dict(zip(leaves, grads[:3])))
+        g_h, g_t, g_r = grads["h_e"], grads["t_e"], grads["r_e"]
+        rel_ids = bs.r
+        if nR:
+            # the sorted rows' gradients back to the generic layout: h's
+            # is the difference's, t's its negation
+            g_d = grads["d_neg"].new_empty(nR * B, de).index_copy_(
+                0, o2, grads["d_neg"])
+            g_h = torch.cat([g_h, g_d])
+            g_t = torch.cat([g_t, -g_d])
+            # the relation negatives' rows in their sorted order
+            rel_ids = torch.cat([rel_sorted, bs.r])
+            g_r = torch.cat([grads["r_neg"], g_r])
+        updates = merged_row_updates(_ENT_GATHERS, bs,
+                                     {"h_e": g_h, "t_e": g_t})
+        updates["rel_embeddings"] = (rel_ids, g_r)
         # built on the card: an index assignment of True would copy the
         # Python scalar from pageable memory, a blocking copy
         touched = torch.zeros(rows, dtype=torch.bool,
-                              device=tm.device).index_fill_(0, bs.r, True)
+                              device=tm.device).index_fill_(0, rel_ids, True)
         updates["transfer_matrix"] = DenseUpdate(
-            grad=grads[3].view(rows, de * dr), touched=touched)
+            grad=grads["m"].view(rows, de * dr), touched=touched)
     return loss.detach(), updates
 
 
@@ -291,7 +349,7 @@ def loss_and_row_grads(model: KGEModel, cfg: Config, params: Params,
                        batch: SampledBatch):
     """Scalar loss and the merged (table → (ids, row grads)) updates;
     gradients are taken with respect to the gathered rows only."""
-    if use_grouped_transr(cfg):
+    if use_grouped_transr(cfg) or use_grouped_transr_relneg(cfg, params):
         return loss_and_row_grads_transr_grouped(model, cfg, params, batch)
     if use_rotate_slots(model, params, batch):
         return loss_and_row_grads_rotate(cfg, params, batch)
@@ -313,9 +371,11 @@ def check_train_supported(cfg: Config) -> None:
     if use_grouped_transr(cfg) and cfg.dtype != "float32":
         raise NotPortedError(
             f"TransR's grouped step with dtype {cfg.dtype!r} tables: the "
-            "JAX package's grouped step raises on them too; train with "
-            "--negative_rel > 0 or grouped_transr=False (the generic step); "
-            "configurations still to run are ROADMAP.md queue W")
+            "JAX package's grouped step raises on them too; such tables "
+            "train on the generic step, which TransR takes with "
+            "grouped_transr=False, or with --negative_rel > 0 when the "
+            "tables are not float32; configurations still to run are "
+            "ROADMAP.md queue W")
 
 
 def build_train_step(model: KGEModel, cfg: Config, batch_size: int

@@ -2,7 +2,8 @@
 (``tests/plain_generic.py``) on seeded random tables at a small size on
 the CPU: RotatE under the self-adversarial loss and lazy Adam (the
 ``rotate_d1000_fb15k237`` configuration's path), and TransR with relation
-negatives under SGD, which leaves the grouped route for the generic one.
+negatives under SGD, on the generic route (``grouped_transr=False``) and
+on the relation-grouped route that fp32 tables take.
 Both sides start from the same tables and take the same u32 draws; each
 step's batch, loss, tables and, under Adam, both moments are compared.
 The references import nothing of JAX or of either package, and the
@@ -38,6 +39,13 @@ CONFIGS = {
         negative_rel=0, bern=False, batch_size=24),
     # TransR with relation negatives: the generic route, per-row M_r
     "transr_relneg_sgd": dict(
+        model="transr", hidden_size=6, ent_size=6, rel_size=5, margin=1.5,
+        alpha=0.02, opt_method="sgd", loss_mode="pairwise", negative_ent=3,
+        negative_rel=2, bern=True, batch_size=20, grouped_transr=False),
+    # the same on the grouped route (the transr_d200_fb15k237
+    # configuration's path with relation negatives): two relation-sorted
+    # streams through the grouped projection, a dense M gradient
+    "transr_relneg_grouped_sgd": dict(
         model="transr", hidden_size=6, ent_size=6, rel_size=5, margin=1.5,
         alpha=0.02, opt_method="sgd", loss_mode="pairwise", negative_ent=3,
         negative_rel=2, bern=True, batch_size=20),

@@ -138,8 +138,12 @@ TRANSR = dict(model="transr", ent_size=16, rel_size=8, alpha=0.05,
     dict(model="transe", hidden_size=16, alpha=0.05, negative_ent=2,
          negative_rel=1),
     dict(TRANSR, negative_ent=2),                   # grouped route, B4
-    dict(TRANSR, negative_ent=1, negative_rel=1)],  # generic route, B5
-    ids=["transe", "transr-grouped", "transr-generic"])
+    dict(TRANSR, negative_ent=1, negative_rel=1,    # generic route, B5
+         grouped_transr=False),
+    # the port's grouped route with relation negatives (B4, two streams);
+    # the JAX package's generic step
+    dict(TRANSR, negative_ent=1, negative_rel=1)],
+    ids=["transe", "transr-grouped", "transr-generic", "transr-relneg"])
 def test_host_scan_steps_match_jax(samplers, monkeypatch, kw):
     """One stacked group of 3 batches through both packages' host-path
     steps, from the same tables."""

@@ -220,9 +220,11 @@ def test_host_sampler_grid_matches_single_device_host_run(host_runs, case):
 def test_one_cell_grid_is_the_single_device_step(model_name):
     """A (1, 1) grid draws the single-device bits and runs its arithmetic:
     every table bit for bit after three steps (the JAX step's
-    ``:95-97`` contract)."""
+    ``:95-97`` contract). The grid scores its slots on the generic step,
+    which single-device TransR takes with ``grouped_transr=False`` (with
+    relation negatives and fp32 tables it takes the grouped route)."""
     kw = cfg_kw("adam", model_name)
-    cfg = Config(**kw)
+    cfg = Config(**kw, grouped_transr=False)
     ds = random_kg(**KG)
     model = get_model(model_name)
     sampler = DeviceSampler.build(ds, build_kg_index(ds, for_eval=False),

@@ -17,6 +17,7 @@ from openkeonspark_tpu.sampling.device import \
 from openkeonspark_tpu_torch.models import TransE
 from openkeonspark_tpu_torch.sampling import (DeviceSampler,
                                               flatten_reference_layout)
+from openkeonspark_tpu_torch.sampling import device as sampling_device
 from openkeonspark_tpu_torch.sampling.device import batched_upper_bound
 from openkeonspark_tpu_torch.train.step import gather_slots_structured
 
@@ -105,6 +106,45 @@ def test_batched_upper_bound_matches_searchsorted():
                               torch.tensor(cnt_q), torch.tensor(queries),
                               iters=6)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cap", [0, 1 << 22], ids=["search", "window"])
+def test_batched_upper_bound_paths_match_searchsorted(cap, monkeypatch):
+    """Both ways of counting, the binary search (lanes × widest window
+    over the cap) and the comparison of every window slot, give
+    ``searchsorted``'s count on ``[lanes, draws]`` queries against one
+    window a lane, windows as the sampler lays them out (empty ones, one
+    ending the array, ``cnt`` up to ``2**iters − 1``)."""
+    monkeypatch.setattr(sampling_device, "WINDOW_COUNT_MAX_ELEMS", cap)
+    rng = np.random.default_rng(5)
+    iters = 5
+    windows = [np.sort(rng.choice(200, size=n, replace=False))
+               for n in rng.integers(0, 32, size=40)] + [np.arange(31)]
+    arr = np.concatenate(windows)
+    offs = np.cumsum([0] + [len(w) for w in windows[:-1]])
+    x = rng.integers(-5, 205, size=(len(windows), 3))
+    want = np.array([[np.searchsorted(w, v, side="right") for v in row]
+                     for w, row in zip(windows, x)])
+    got = batched_upper_bound(
+        torch.tensor(arr), torch.tensor(offs)[:, None],
+        torch.tensor([len(w) for w in windows])[:, None], torch.tensor(x),
+        iters)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_batches_are_the_same_through_either_count(kg, monkeypatch):
+    """A batch with entity and relation negatives drawn through the
+    window comparison (this KG's windows are narrow) equals the one drawn
+    from the same bits through the binary search, id for id."""
+    _, _, sampler = kg
+    bits = sampler.draw_bits((300, sampler.bits_cols(3, 2)),
+                             torch.Generator().manual_seed(6))
+    want = sampler.sample(300, 3, 2, True, bits=bits)
+    monkeypatch.setattr(sampling_device, "WINDOW_COUNT_MAX_ELEMS", 0)
+    got = sampler.sample(300, 3, 2, True, bits=bits)
+    for f in got.FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_negatives_are_filtered(kg):

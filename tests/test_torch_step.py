@@ -141,13 +141,27 @@ def test_transr_grouped_step_matches_generic_step(loss_mode):
 
 @pytest.mark.parametrize("loss_mode", ["mean_neg", "self_adv"])
 def test_transr_generic_step_matches_jax(loss_mode):
-    """TransR with relation negatives takes the generic step (gathered
-    ``[d_e·d_r]`` matrices, ``transfer_matrix`` rows scattered through B5's
-    plain version) in both packages: the same u32 bits give the same
-    batch (checked), the loss agrees to rtol 1e-5 and every post-SGD table to atol
-    1e-5."""
+    """TransR with relation negatives and ``grouped_transr=False`` takes
+    the generic step (gathered ``[d_e·d_r]`` matrices, ``transfer_matrix``
+    rows scattered through B5's plain version) in both packages: the same
+    u32 bits give the same batch (checked), the loss agrees to rtol 1e-5
+    and every post-SGD table to atol 1e-5."""
+    _transr_relneg_step_matches_jax(loss_mode, grouped=False)
+
+
+@pytest.mark.parametrize("loss_mode", ["mean_neg", "self_adv"])
+def test_transr_grouped_relneg_step_matches_jax(loss_mode):
+    """TransR with relation negatives and fp32 tables takes the port's
+    relation-grouped route (two relation-sorted streams through the
+    grouped projection's plain versions, a dense ``transfer_matrix``
+    gradient), the JAX package's generic step: the same batch, loss and
+    post-SGD tables as in the generic case."""
+    _transr_relneg_step_matches_jax(loss_mode, grouped=True)
+
+
+def _transr_relneg_step_matches_jax(loss_mode, grouped):
     cfg = TRANSR.replace(negative_rel=1, loss_mode=loss_mode, ent_size=64,
-                         rel_size=64)
+                         rel_size=64, grouped_transr=grouped)
     tcfg = port_config(cfg)
     assert not jstep.use_grouped_transr(cfg)
     assert not tstep.use_grouped_transr(tcfg)
@@ -174,6 +188,7 @@ def test_transr_generic_step_matches_jax(loss_mode):
     for k in ("h", "t", "r", "neg_h", "neg_t", "neg_rel"):
         np.testing.assert_array_equal(getattr(tb, k).numpy(),
                                       np.asarray(getattr(jb, k)), err_msg=k)
+    assert tstep.use_grouped_transr_relneg(tcfg, tparams) == grouped
     want, loss_j = jfn(state, jsampler, jax.random.key(0),
                        bits=jnp.asarray(bits.astype(np.uint32)))
     got, loss_t = tfn(tstep.TrainState(tparams, {}, 0), tsampler,

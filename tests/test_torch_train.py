@@ -254,11 +254,12 @@ def test_cli_train_end_to_end_matches_jax_ranks(planted_dir, capsys):
 @pytest.mark.parametrize("opt", ["sgd", "adagrad"])
 def test_cli_train_transr_relation_negatives(planted_dir, tmp_path, capsys,
                                              opt):
-    """``cli.train --model transr --negative_rel 1`` takes the generic
-    step, whose 4,096-wide ``transfer_matrix`` rows are updated through
-    B5 (its plain version here; with Adagrad the gradient sum G is): the
-    loss falls, the export ranks as in the JAX package but for
-    near-ties."""
+    """``cli.train --model transr --negative_rel 1`` takes the
+    relation-grouped step with its relation negatives as a second sorted
+    stream (the grouped projection's plain versions here), whose dense
+    ``transfer_matrix`` gradient SGD adds and Adagrad applies at every
+    scored relation: the loss falls, the export ranks as in the JAX
+    package (trained on its generic step) but for near-ties."""
     root, ds = planted_dir
     out = tmp_path / "out"
     summary = train_cli.main(_argv(
